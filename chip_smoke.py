@@ -10,7 +10,7 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
 ``modkit_tpu``. Phases, each of which fails the run on any mismatch:
 
 1. the card's name and power limit, the torch and CUDA versions;
-2. build both kernels (one ``nvcc`` per ``csrc/*.cu``, started together)
+2. build the kernels (one ``nvcc`` per ``csrc/*.cu``, started together)
    and the host C++ runtime;
 3. the state kernel (``csrc/state.cu``) against its plain PyTorch version,
    exactly, on a real tile of the bench workload and on ragged sizes, for
@@ -30,6 +30,19 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
    launches > 0.
 7. one more device run traced with torch.profiler (``MODKIT_TPU_PROFILE``):
    the card's busy share over the traced window and its busiest ops.
+8. more than 8 mod codes: the runtime-M kernels of kernel A's f32 entry
+   and of kernel B against their plain versions for M in {3, 9, 16}, and a 9-code pileup on ``cuda``
+   through the native route (kernel A's f32 entry) and the Python event
+   route (kernel B), each byte-equal to the host C++ route;
+9. the count-kernel lab (``tools/kernel_lab.py`` of the port, kernels in
+   ``csrc/lab_counts.cu``) at its full size (4 194 304 events, P =
+   100 000, M = 2) through its entry point, every variant and both rep8
+   ablations; then each TPU function's kernel against its plain version
+   and the ``torch.bincount`` oracle, exactly, with times and bounds.
+
+Before phase 3 it prints the card's measured peaks (``tools/true_bench.py``:
+HBM read and copy rates, bf16 ``torch.matmul`` rate) beside the data-sheet
+rate the bounds use.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -62,37 +75,6 @@ COUNT_POSITIONS = 100_000
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_time_ms(fn, reps: int, warmup: int = 3) -> tuple[float, float]:
-    """(device ms, call ms) of ``fn()``, each the mean over ``reps`` calls.
-
-    Device: CUDA events around ``reps`` calls queued behind a ~25 ms sleep
-    kernel, so the card runs them back to back whatever the host's cost of
-    enqueueing (a function that synchronises inside waits for the sleep,
-    and its host gaps then count). Call: the host clock around ``reps``
-    calls and a final synchronize, the cost a caller pays per call.
-    Inputs stay warm in L2, as right after a tile's upload.
-    """
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    stop.synchronize()
-    device_ms = start.elapsed_time(stop) / reps
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    return device_ms, (time.perf_counter() - t0) * 1e3 / reps
 
 
 def bound(nbytes: float, f32_ops: float) -> tuple[float, str]:
@@ -133,6 +115,7 @@ def phase_state(tile, dev) -> dict:
     import torch
 
     from modkit_tpu_torch.ops import state
+    from modkit_tpu_torch.tools.true_bench import cuda_time_ms
 
     rng = np.random.default_rng(7)
     n_main = tile.n_events
@@ -203,6 +186,7 @@ def phase_counts(tile, dev) -> dict:
 
     from modkit_tpu_torch.ops import counts
     from modkit_tpu_torch.ops.state import thresholds_to_tensors
+    from modkit_tpu_torch.tools.true_bench import cuda_time_ms
 
     rng = np.random.default_rng(11)
     n = tile.n_events
@@ -312,17 +296,21 @@ def tile_layers(tile, dev, reader) -> None:
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0, just before a path runs."""
-    from modkit_tpu_torch.ops import counts, state
+    from modkit_tpu_torch.ops import counts, lab_counts, state
 
     state.STATE_KERNEL_LAUNCHES = 0
+    state.STATE_F32_KERNEL_LAUNCHES = 0
     counts.COUNT_KERNEL_LAUNCHES = 0
+    lab_counts.reset_launches()
 
 
-def read_launches() -> tuple[int, int]:
-    """(state, count) kernel launches since reset_launches()."""
+def read_launches() -> tuple[int, int, int]:
+    """(state quals entry, state f32 entry, count) kernel launches since
+    reset_launches()."""
     from modkit_tpu_torch.ops import counts, state
 
-    return state.STATE_KERNEL_LAUNCHES, counts.COUNT_KERNEL_LAUNCHES
+    return (state.STATE_KERNEL_LAUNCHES, state.STATE_F32_KERNEL_LAUNCHES,
+            counts.COUNT_KERNEL_LAUNCHES)
 
 
 def run_path(bam: str, out: str, **kw) -> tuple[float, dict]:
@@ -385,8 +373,9 @@ def phase_main(bam: str, work: str) -> int:
                     t, stats = run_path(bam, out, device="cuda", **kw, **extra)
                 finally:
                     os.environ["MODKIT_TPU_OFFLOAD"] = "always"
-                n_launch, n_count = read_launches()
-                require(n_count == 0, f"{mode}: {route} ran the count kernel")
+                n_launch, n_f32, n_count = read_launches()
+                require(n_count == 0 and n_f32 == 0,
+                        f"{mode}: {route} ran the f32 state or count kernel")
                 times[route].append(t)
                 if first is None:
                     first = out
@@ -470,14 +459,245 @@ def phase_count_path(work: str) -> int:
                             filter_threshold={"default": 0.6})
     finally:
         del os.environ["MODKIT_TPU_DISABLE_NATIVE"]
-    n_state, n_launch = read_launches()
-    require(n_state == 0, "count path: the state kernel ran")
+    n_state, n_f32, n_launch = read_launches()
+    require(n_state == 0 and n_f32 == 0, "count path: a state kernel ran")
     require(filecmp.cmp(dev_out, host_out, shallow=False),
             "count path: cuda output differs from the host path")
     require(n_launch > 0, "count path: the count kernel never launched")
     log(f"count path: 2000 reads, {n_launch} count launches, "
         f"{t_dev:.3f} s; byte-equal")
     return n_launch
+
+
+def phase_peaks() -> None:
+    """The card's measured peaks, beside the data-sheet rate of the bounds."""
+    from modkit_tpu_torch.tools import true_bench
+
+    pk = true_bench.measure()
+    log(f"peaks (tools/true_bench.py, CUDA events): HBM read "
+        f"{pk['hbm_read_gbps']:.1f} GB/s, HBM copy (r+w) "
+        f"{pk['hbm_copy_gbps']:.1f} GB/s, bf16 torch.matmul "
+        f"{pk['matmul_bf16_tflops']:.1f} TFLOP/s; the bounds below use the "
+        f"data sheet's {HBM_BYTES_PER_S / 1e9:.0f} GB/s")
+
+
+MANY_CODES = (3, 9, 16)
+NINE = 9
+
+
+def phase_many_codes(tile, dev, work) -> dict:
+    """Kernel A's f32 entry and kernel B for M in MANY_CODES against their
+    plain versions at the tile's event count, timed; then a 9-code pileup
+    on the card through both device routes (native decoder: kernel A's f32
+    entry; Python event route: kernel B), each byte-equal to the host C++
+    route. Returns {row name: kernels entry} at M = NINE, with the launches
+    of the 9-code run that drives the row's kernel."""
+    import numpy as np
+    import torch
+
+    from modkit_tpu_torch.ops import counts, state
+    from modkit_tpu_torch.tools.true_bench import cuda_time_ms
+    from modkit_tpu_torch.utils.synth_codes import make_multicode_modbam
+
+    rng = np.random.default_rng(13)
+    n = tile.n_events
+    rpos, strand, base, _ = tile.export_events()
+    rpos = np.ascontiguousarray(rpos % COUNT_POSITIONS, dtype=np.int32)
+    rows = {}
+    worst = dict.fromkeys(
+        ("threshold_state_f32_any_m", "modcall_counts_any_m"), 0)
+    for m in MANY_CODES:
+        probs = rng.random((n, m), dtype=np.float32) / np.float32(m)
+        probs[rng.random((n, m)) < 0.2] = -1.0
+        tm, tc = state.thresholds_to_tensors(
+            rng.random((m, 4), dtype=np.float32) * np.float32(0.5),
+            rng.random(4, dtype=np.float32) * np.float32(0.8), m)
+        p_d = torch.from_numpy(probs).to(dev)
+        b8 = torch.from_numpy(base.astype(np.uint8)).to(dev)
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (rpos, strand, base)] + [p_d]
+        for name, kern, plain, nbytes in (
+            ("threshold_state_f32_any_m",
+             lambda: state.threshold_state_f32(p_d, b8, tm, tc),
+             lambda: state.threshold_state_f32_plain(p_d, b8, tm, tc),
+             n * (4 * m + 1) + n),
+            ("modcall_counts_any_m",
+             lambda: counts.modcall_counts(*args, tm, tc, COUNT_POSITIONS),
+             lambda: counts.modcall_counts_plain(*args, tm, tc,
+                                                 COUNT_POSITIONS),
+             n * (12 + 4 * m) + COUNT_POSITIONS * 2 * (1 + 4 * (m + 1)) * 4),
+        ):
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max().item())
+            worst[name] = max(worst[name], err)
+            require(torch.equal(got, want), f"{name} kernel != plain at M={m}")
+            ms, _ = cuda_time_ms(kern, 100)
+            b_ms, b_by = bound(nbytes, 7.0 * m * n)
+            log(f"{name} M={m} N={n}: {ms:.5f} ms, bound {b_ms:.5f} ms "
+                f"({b_by}), share {b_ms / ms:.3f}; == plain")
+            if m == NINE:
+                plain_ms, _ = cuda_time_ms(plain, 10)
+                rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=b_by, library_ms=None)
+        # kernel B's yardstick at M = NINE: torch.bincount over the keys
+        if m == NINE:
+            st = state.threshold_state_f32_plain(p_d, b8, tm, tc).long()
+            b = args[2].long()
+            km = 1 + 4 * (m + 1)
+            flat = (args[0].long() * 2 + args[1].long()) * km + torch.where(
+                st == 0, 0, 1 + b * (m + 1) + (st - 1))
+            rows["modcall_counts_any_m"]["library_ms"] = cuda_time_ms(
+                lambda: torch.bincount(flat,
+                                       minlength=COUNT_POSITIONS * 2 * km),
+                100)[0]
+    bam = os.path.join(work, "nine.bam")
+    make_multicode_modbam(bam, n_reads=2000, read_len=BENCH_READ_LEN, seed=3)
+    outs, launches = {}, {}
+    for route, offload, native_off in (
+            ("cuda native", "always", False),
+            ("cuda python", "always", True),
+            ("host C++", "never", False)):
+        outs[route] = os.path.join(work, f"nine.{route.replace(' ', '_')}.bed")
+        os.environ["MODKIT_TPU_OFFLOAD"] = offload
+        if native_off:
+            os.environ["MODKIT_TPU_DISABLE_NATIVE"] = "1"
+        reset_launches()
+        try:
+            t, stats = run_path(bam, outs[route], device="cuda",
+                                no_filtering=True)
+        finally:
+            os.environ["MODKIT_TPU_OFFLOAD"] = "always"
+            os.environ.pop("MODKIT_TPU_DISABLE_NATIVE", None)
+        launches[route] = read_launches()
+        require(stats["rows"] > 0, f"9 codes, {route}: no rows")
+        require(filecmp.cmp(outs[route], outs["cuda native"], shallow=False),
+                f"9 codes: the {route} route wrote other bytes")
+    require(launches["cuda native"][0] == 0
+            and launches["cuda native"][1] > 0
+            and launches["cuda native"][2] == 0,
+            f"9 codes, native route: launches {launches['cuda native']}")
+    require(launches["cuda python"][:2] == (0, 0)
+            and launches["cuda python"][2] > 0,
+            f"9 codes, python route: launches {launches['cuda python']}")
+    require(launches["host C++"] == (0, 0, 0),
+            f"9 codes, host route: launches {launches['host C++']}")
+    rows["threshold_state_f32_any_m"]["launches"] = launches["cuda native"][1]
+    rows["modcall_counts_any_m"]["launches"] = launches["cuda python"][2]
+    for name, row in rows.items():
+        row["max_abs_err"] = worst[name]
+    log(f"9-code pileup: 2000 reads, rows {stats['rows']}; native route "
+        f"{launches['cuda native'][1]} f32 state launches, python route "
+        f"{launches['cuda python'][2]} count launches (M = 9); both "
+        "byte-equal to the host C++ route")
+    return rows
+
+
+# every variant of the lab; the rep8 ablations run after them
+LAB_VARIANTS = (
+    "bf16x2", "bf16x4", "int8x1", "int8x4", "bigk-bf16", "bigk-int8",
+    "group", "group-int8", "group-int8x2", "bigkh", "bigkh-int8",
+    "rep8", "rep8-int8", "rep8-int8-c256", "rep8-int8-c1024",
+    "empty", "onehot-only", "matmul-only", "a-only",
+)
+# (wrapper, the variant its row times or None for count_call, input
+# bytes per event slot, integer operations per slot, the TPU function)
+LAB_ROWS = (
+    ("run_variant", "int8x1", 9, 4, "tools/kernel_lab.py:81"),
+    ("run_diag", "onehot-only", 9, 6, "tools/kernel_lab.py:160"),
+    ("run_bigk", "bigk-int8", 9, 4, "tools/kernel_lab.py:211"),
+    ("run_group", "group-int8", 2, 4, "tools/kernel_lab.py:296"),
+    ("run_bigk_host", "bigkh-int8", 2, 4, "tools/kernel_lab.py:344"),
+    ("run_rep8", "rep8-int8", 16, 24, "tools/kernel_lab.py:412"),
+    ("count_call", None, 16, 24, "modkit_tpu/ops/pallas_counts.py:113"),
+)
+
+
+def phase_lab() -> list:
+    """The lab's main path (its entry point over LAB_VARIANTS, then
+    rep8-int8 under each ablation switch), then each TPU function's kernel
+    against its plain version and the oracles at the lab's shape, timed
+    beside its bound and ``torch.bincount`` over precomputed keys; returns
+    the rows of the kernels line."""
+    import torch
+
+    from modkit_tpu_torch.ops import lab_counts as lc
+    from modkit_tpu_torch.tools import kernel_lab
+    from modkit_tpu_torch.tools.true_bench import cuda_time_ms
+
+    reps = os.environ.get("LAB_REPS", "10")
+    reset_launches()
+    t0 = time.perf_counter()
+    require(kernel_lab.main(list(LAB_VARIANTS)) == 0,
+            "kernel lab: a variant mismatched or failed")
+    for env in ("LAB_NO_DOT", "LAB_NO_CONSTRUCT"):
+        os.environ[env] = "1"
+        try:
+            require(kernel_lab.main(["rep8-int8"]) == 0,
+                    f"kernel lab under {env}: mismatch")
+        finally:
+            del os.environ[env]
+    launches = dict(lc.LAUNCHES)
+    log(f"kernel lab: {len(LAB_VARIANTS)} variants and 2 ablations in "
+        f"{time.perf_counter() - t0:.1f} s (LAB_REPS={reps}); launches "
+        + json.dumps(launches))
+    for name, *_ in LAB_ROWS:
+        require(launches[name] > 0, f"kernel lab: {name} never launched")
+
+    lab = kernel_lab.LabInputs.build(
+        kernel_lab.lab_events(kernel_lab.EVENTS, kernel_lab.POSITIONS),
+        kernel_lab.POSITIONS, "cuda")
+    g, slots = lab.n_groups, lab.n_chunks * lab.chunk
+    cells = g * lc.CELLS
+    c2g, p2, col, valid = lab.planes
+    grp = c2g.long().repeat_interleave(lab.chunk) * lc.CELLS
+    keep = valid != 0
+    keys = (grp + p2.long() * lc.LANES + col.long())[keep]
+    oracle = torch.from_numpy(lab.oracle()).to(lab.dev)
+    require(torch.equal(
+        torch.bincount(keys, minlength=cells).int().view(g, lc.P2, lc.LANES),
+        oracle), "kernel lab: the numpy and torch oracles differ")
+    lane = torch.arange(lc.LANES, device=lab.dev).repeat(slots // lc.LANES)
+    onehot_keys = torch.cat([grp + p2.long() * lc.LANES + lane,
+                             (grp + col.long() * lc.LANES + lane)[keep]])
+    out_bytes = cells * 4
+    log(f"kernel lab shape: {lab.n_chunks} chunks, {slots} slots, "
+        f"{lab.n_events} events, {g} groups, output {out_bytes} B")
+    rows = []
+    for name, variant, slot_bytes, slot_ops, replaces in LAB_ROWS:
+        if variant is None:
+            kern = lambda: lc.count_call(c2g, *lab.rep8, n_groups=g)
+            plain = lambda: lc.rep8_plain(c2g, *lab.rep8, g, lab.chunk)
+            histogram = True
+        else:
+            kern, plain, histogram = kernel_lab.variant_call(variant, lab)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max().item())
+        require(torch.equal(got, want), f"{name} kernel != plain")
+        require(not histogram or torch.equal(got, oracle),
+                f"{name} kernel != the oracle")
+        ms, call_ms = cuda_time_ms(kern, 100)
+        plain_ms, _ = cuda_time_ms(plain, 5)
+        lib_keys = onehot_keys if variant == "onehot-only" else keys
+        lib_ms, _ = cuda_time_ms(
+            lambda: torch.bincount(lib_keys, minlength=cells), 20)
+        index_bytes = 2 * g * 4 if name == "run_group" else lab.n_chunks * 4
+        nbytes = slots * slot_bytes + index_bytes + out_bytes
+        b_ms, b_by = bound(nbytes, float(slots * slot_ops))
+        log(f"lab {name} ({variant or 'count_call'}): kernel {ms:.5f} ms "
+            f"(per call {call_ms:.5f} ms), plain {plain_ms:.5f} ms, "
+            f"torch.bincount {lib_ms:.5f} ms, {nbytes} B, bound "
+            f"{b_ms:.5f} ms ({b_by}), share {b_ms / ms:.3f}, "
+            f"{lab.n_events / ms / 1e6:.2f} Geps; == plain"
+            + (" == oracle" if histogram else ""))
+        rows.append(dict(
+            name=name, route="cuda",
+            source="modkit_tpu_torch/csrc/lab_counts.cu", replaces=replaces,
+            launches=launches[name], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms))
+    return rows
 
 
 def main() -> int:
@@ -524,12 +744,15 @@ def main() -> int:
         reader = BamReader(bam)
         tile = middle_tile(reader)
         require(tile.n_events > 0, "the bench tile has no events")
+        phase_peaks()
         st = phase_state(tile, dev)
         ct = phase_counts(tile, dev)
         tile_layers(tile, dev, reader)
         state_launches = phase_main(bam, work)
         count_launches = phase_count_path(work)
         phase_profile(bam, work)
+        many = phase_many_codes(tile, dev, work)
+        lab_rows = phase_lab()
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -546,6 +769,15 @@ def main() -> int:
              launches=count_launches, max_abs_err=ct["max_abs_err"],
              ms=ct["ms"], plain_ms=ct["plain_ms"], bound_ms=ct["bound_ms"],
              bound_by=ct["bound_by"], library_ms=ct["library_ms"]),
+        dict(name="threshold_state_f32_any_m", route="cuda",
+             source="modkit_tpu_torch/csrc/state.cu",
+             replaces="modkit_tpu/ops/pileup_counts.py:324",
+             **many["threshold_state_f32_any_m"]),
+        dict(name="modcall_counts_any_m", route="cuda",
+             source="modkit_tpu_torch/csrc/counts.cu",
+             replaces="modkit_tpu/ops/pallas_counts.py:210",
+             **many["modcall_counts_any_m"]),
+        *lab_rows,
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

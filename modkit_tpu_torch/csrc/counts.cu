@@ -18,6 +18,12 @@
 // same counters; privatising a position window in shared memory is later
 // work.
 //
+// M in {1, 2, 4, 8} is unrolled; any other M up to kMaxClasses runs
+// counts_kernel_any, a loop over m classes. Both take the thresholds by
+// value. The unrolled kernels stay because they are faster where both
+// apply (the loop took 1.03-1.04x their time on the H100;
+// tools/call_bench.py, readings in PERF.md).
+//
 // Counter layout per (position, strand), Km = 1 + 4(M+1):
 //   0 filtered, 1 + b(M+1) canonical for base b, 1 + b(M+1) + 1 + j mod j.
 // An event whose index falls outside [0, P*2*Km) is dropped, never written.
@@ -55,6 +61,24 @@ __global__ void counts_kernel(const int32_t* __restrict__ rpos,
   }
 }
 
+__global__ void counts_kernel_any(const int32_t* __restrict__ rpos,
+                                  const int32_t* __restrict__ strand,
+                                  const int32_t* __restrict__ base,
+                                  const float* __restrict__ probs, int64_t n,
+                                  int m, int64_t total, ThresholdsAny thr,
+                                  int32_t* __restrict__ counts) {
+  const int km = 1 + 4 * (m + 1);
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const int b = base[i];
+    const int state = call_state_row(probs + i * m, m, b, thr);
+    const int counter = state == 0 ? 0 : 1 + b * (m + 1) + (state - 1);
+    const int64_t flat = ((int64_t)rpos[i] * 2 + strand[i]) * km + counter;
+    if (flat >= 0 && flat < total) atomicAdd(&counts[flat], 1);
+  }
+}
+
 template <int M>
 void launch(const int32_t* rpos, const int32_t* strand, const int32_t* base,
             const float* probs, int64_t n, int64_t total,
@@ -65,16 +89,17 @@ void launch(const int32_t* rpos, const int32_t* strand, const int32_t* base,
 
 }  // namespace
 
-// counts must hold num_positions * 2 * (1 + 4(m+1)) zeroed int32.
+// counts must hold num_positions * 2 * (1 + 4(m+1)) zeroed int32; any m in
+// [1, kMaxClasses].
 extern "C" int mk_modcall_counts(const void* rpos, const void* strand,
                                  const void* base, const void* probs,
                                  int64_t n, int32_t m, int64_t num_positions,
                                  const void* thr_mod, const void* thr_can,
                                  void* counts, void* stream) {
-  if (n <= 0 || num_positions <= 0 || !supported_classes(m))
+  if (n <= 0 || num_positions <= 0 || m < 1 || m > kMaxClasses)
     return (int)cudaErrorInvalidValue;
-  const Thresholds thr = make_thresholds(static_cast<const float*>(thr_mod),
-                                         m, static_cast<const float*>(thr_can));
+  const auto* tm = static_cast<const float*>(thr_mod);
+  const auto* tc = static_cast<const float*>(thr_can);
   const int64_t total = num_positions * 2 * (1 + 4 * (m + 1));
   const auto* r = static_cast<const int32_t*>(rpos);
   const auto* s = static_cast<const int32_t*>(strand);
@@ -82,12 +107,17 @@ extern "C" int mk_modcall_counts(const void* rpos, const void* strand,
   const auto* p = static_cast<const float*>(probs);
   auto* c = static_cast<int32_t*>(counts);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (m) {
-    case 1: launch<1>(r, s, b, p, n, total, thr, c, st); break;
-    case 2: launch<2>(r, s, b, p, n, total, thr, c, st); break;
-    case 4: launch<4>(r, s, b, p, n, total, thr, c, st); break;
-    case 8: launch<8>(r, s, b, p, n, total, thr, c, st); break;
-    default: return (int)cudaErrorInvalidValue;
+  if (m == 1 || m == 2 || m == 4 || m == 8) {
+    const auto thr = make_thresholds<8>(tm, m, tc);
+    switch (m) {
+      case 1: launch<1>(r, s, b, p, n, total, thr, c, st); break;
+      case 2: launch<2>(r, s, b, p, n, total, thr, c, st); break;
+      case 4: launch<4>(r, s, b, p, n, total, thr, c, st); break;
+      case 8: launch<8>(r, s, b, p, n, total, thr, c, st); break;
+    }
+  } else {
+    counts_kernel_any<<<grid_for(n, kThreads), kThreads, 0, st>>>(
+        r, s, b, p, n, m, total, make_thresholds<kMaxClasses>(tm, m, tc), c);
   }
   return (int)cudaGetLastError();
 }

@@ -17,8 +17,10 @@ and the [P, 2, Km] tensor is written once. The TPU kernel sorted events by
 position and counted them as one-hot int8 matmuls because the TPU has no
 scatter; Hopper has integer atomics, so the kernel is one thread per event
 that computes the call (the shared ``call.cuh`` function of kernel A) and
-``atomicAdd``s one into its counter. Integer atomics make the result exact
-in any order, so no sort and no host planning are needed.
+``atomicAdd``s one into its counter. M in {1, 2, 4, 8} is unrolled; any
+other M up to ``state.MAX_CLASSES`` runs a runtime-M kernel. Integer
+atomics make the result exact in any order, so no sort and no host
+planning are needed.
 
 The wrapper runs the plain PyTorch version (the same call, then
 ``torch.bincount``) for tensors on the CPU and launches the kernel for

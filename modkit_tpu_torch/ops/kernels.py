@@ -38,6 +38,11 @@ _SIGNATURES = {
     "counts": {
         "mk_modcall_counts": [_P, _P, _P, _P, _I64, _I32, _I64, _P, _P, _P, _P],
     },
+    "lab_counts": {
+        "mk_lab_hist": [_I32, _P, _P, _P, _P, _I64, _I32, _I32, _P, _P],
+        "mk_lab_group": [_P, _P, _I32, _I64, _P, _P],
+        "mk_lab_diag": [_I32, _P, _P, _P, _P, _I64, _I32, _I32, _P, _P],
+    },
 }
 
 _libs: dict = {}
@@ -61,12 +66,12 @@ def nvcc_path() -> str:
     )
 
 
-def _sources(name: str) -> list[str]:
-    return [os.path.join(CSRC, f"{name}.cu"), os.path.join(CSRC, "call.cuh")]
+def _sources(name: str, csrc: str) -> list[str]:
+    return [os.path.join(csrc, f"{name}.cu"), os.path.join(csrc, "call.cuh")]
 
 
-def _compile(name: str, so_path: str) -> None:
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", so_path, _sources(name)[0]]
+def _compile(name: str, csrc: str, so_path: str) -> None:
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", so_path, _sources(name, csrc)[0]]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -74,29 +79,34 @@ def _compile(name: str, so_path: str) -> None:
         )
 
 
-def library_path(name: str) -> str:
-    """Build (once) and return the shared library of ``csrc/<name>.cu``."""
+def library_path(name: str, csrc: str = CSRC) -> str:
+    """Build (once) and return the shared library of ``<csrc>/<name>.cu``."""
     return build_once(
-        f"lib{name}", _sources(name), NVCC_FLAGS,
-        lambda tmp: _compile(name, tmp),
+        f"lib{name}", _sources(name, csrc), NVCC_FLAGS,
+        lambda tmp: _compile(name, csrc, tmp),
     )
 
 
+def open_library(name: str, csrc: str = CSRC) -> ctypes.CDLL:
+    """Build (once) and load ``<csrc>/<name>.cu`` with its argtypes set."""
+    lib = ctypes.CDLL(library_path(name, csrc))
+    for fn, argtypes in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.mk_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.mk_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def kernel_lib(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` with its argtypes set."""
+    """The loaded library of ``csrc/<name>.cu``, the one the wrappers launch."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(library_path(name))
-            for fn, argtypes in _SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            lib.mk_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.mk_cuda_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
+            lib = _libs[name] = open_library(name)
     return lib
 
 

@@ -12,8 +12,13 @@ On this card the call is bound by bytes: per event it reads M + 3 bytes
 (class-major u8 quality planes plus present/zero bitmasks and the base) or
 4M + 1 (f32 probabilities plus the base) and writes one byte, with a dozen
 f32 operations per class. The kernel reads each input once with one thread
-per event, unrolls the class loop in registers and takes the thresholds as
-a by-value argument, so it moves the least bytes the call needs.
+per event and takes the thresholds as a by-value argument, so it moves the
+least bytes the call needs. The quals entry takes M in
+``QUALS_CLASSES`` (its present/zero masks are one byte) and unrolls the
+class loop in registers; the f32 entry unrolls those M too and takes any
+other M up to ``MAX_CLASSES`` (the state 2 + j is one byte) through a
+runtime-M kernel, a loop over the classes (slower than the unrolled
+kernels where both apply: ``tools/call_bench.py``, ``PERF.md``).
 
 Each wrapper runs the plain PyTorch version for tensors on the CPU and
 launches the kernel for tensors on a CUDA device; anything else raises. The
@@ -27,17 +32,25 @@ import threading
 import numpy as np
 import torch
 
-# launches of the CUDA state kernel in this process (both entries)
+# launches of the CUDA state kernels in this process: the quals entry's
+# and the f32 entry's
 STATE_KERNEL_LAUNCHES = 0
+STATE_F32_KERNEL_LAUNCHES = 0
 _count_lock = threading.Lock()
 
-SUPPORTED_CLASSES = (1, 2, 4, 8)
+# class counts of the quals entry; the f32 and count entries take any M up
+# to MAX_CLASSES (their C entries unroll these counts and loop for others)
+QUALS_CLASSES = (1, 2, 4, 8)
+MAX_CLASSES = 253
 
 
-def _count_launch() -> None:
-    global STATE_KERNEL_LAUNCHES
+def _count_launch(f32: bool) -> None:
+    global STATE_KERNEL_LAUNCHES, STATE_F32_KERNEL_LAUNCHES
     with _count_lock:
-        STATE_KERNEL_LAUNCHES += 1
+        if f32:
+            STATE_F32_KERNEL_LAUNCHES += 1
+        else:
+            STATE_KERNEL_LAUNCHES += 1
 
 
 def thresholds_to_tensors(thr_mod, thr_can, m_pad: int, device="cpu"):
@@ -115,11 +128,11 @@ def threshold_state_f32_plain(probs, base, thr_mod, thr_can):
 # ---- wrappers ----
 
 def validate_cuda_launch(what: str, named: dict, m: int, thr_mod, thr_can):
-    """Device, dtype, shape and contiguity checks of a CUDA launch; returns
-    the device."""
-    if m not in SUPPORTED_CLASSES:
+    """Class count, device, dtype, shape and contiguity checks of a CUDA
+    launch; returns the device."""
+    if not 1 <= m <= MAX_CLASSES:
         raise ValueError(
-            f"{what}: the CUDA kernel takes M in {SUPPORTED_CLASSES}, got {m}"
+            f"{what}: the CUDA kernel takes 1 <= M <= {MAX_CLASSES}, got {m}"
         )
     dev = None
     for name, (t, dtype) in named.items():
@@ -155,6 +168,11 @@ def threshold_state_quals_t(quals_t, present, zero, base, thr_mod, thr_can):
             quals_t, present, zero, base, thr_mod, thr_can
         )
     m, n = quals_t.shape
+    if m not in QUALS_CLASSES:
+        raise ValueError(
+            "threshold_state_quals_t: the CUDA kernel takes M in "
+            f"{QUALS_CLASSES}, got {m}"
+        )
     dev = validate_cuda_launch(
         "threshold_state_quals_t",
         {"quals_t": (quals_t, torch.uint8), "present": (present, torch.uint8),
@@ -178,7 +196,7 @@ def threshold_state_quals_t(quals_t, present, zero, base, thr_mod, thr_can):
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     check_launch(lib, rc, "threshold_state_quals_t")
-    _count_launch()
+    _count_launch(f32=False)
     return out
 
 
@@ -210,5 +228,5 @@ def threshold_state_f32(probs, base, thr_mod, thr_can):
             torch.cuda.current_stream(dev).cuda_stream,
         )
     check_launch(lib, rc, "threshold_state_f32")
-    _count_launch()
+    _count_launch(f32=True)
     return out

@@ -4,7 +4,8 @@
   import of ``jax`` or ``modkit_tpu`` (whole names: ``modkit_tpu_torch`` is
   the port itself).
 - The port's CLI runs in a process where both are blocked, and its output
-  is byte-equal (``cmp``) to modkit_tpu's on the same synthetic modBAM.
+  is byte-equal (``cmp``) to modkit_tpu's on the same synthetic modBAM;
+  so does the count-kernel lab's entry point, ``tools/kernel_lab.py``.
 - Without a CUDA device, an entry point that did not ask for the CPU
   raises instead of running there; CRAM input and multi-host runs, which
   arrive in later slices, are refused.
@@ -87,6 +88,25 @@ def test_cli_runs_with_jax_and_modkit_tpu_blocked(tmp_path, bam):
     )
     assert proc.returncode == 0, proc.stderr
     assert filecmp.cmp(ref_out, port_out, shallow=False)
+
+
+def test_kernel_lab_runs_with_jax_and_modkit_tpu_blocked():
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['modkit_tpu'] = None\n"
+        "sys.argv = ['kernel_lab', '--device', 'cpu', '--events', '4000',"
+        " '--positions', '1500', 'int8x1', 'group-int8', 'rep8-int8',"
+        " 'a-only']\n"
+        "runpy.run_module('modkit_tpu_torch.tools.kernel_lab',"
+        " run_name='__main__')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=300, env={**os.environ, "LAB_REPS": "1"},
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.count("[equal]") == 4, proc.stdout
 
 
 def test_cuda_default_raises_without_a_card(tmp_path, bam, monkeypatch):
