@@ -38,7 +38,10 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
    ``csrc/lab_counts.cu``) at its full size (4 194 304 events, P =
    100 000, M = 2) through its entry point, every variant and both rep8
    ablations; then each TPU function's kernel against its plain version
-   and the ``torch.bincount`` oracle, exactly, with times and bounds.
+   and the ``torch.bincount`` oracle, exactly, with times and bounds; then
+   the lab's events all at one position (one cell takes whole chunks) for
+   ``run_variant``, ``run_rep8`` and ``run_group``, kernel == plain ==
+   oracle.
 
 Before phase 3 it prints the card's measured peaks (``tools/true_bench.py``:
 HBM read and copy rates, bf16 ``torch.matmul`` rate) beside the data-sheet
@@ -663,6 +666,14 @@ def phase_lab() -> list:
     out_bytes = cells * 4
     log(f"kernel lab shape: {lab.n_chunks} chunks, {slots} slots, "
         f"{lab.n_events} events, {g} groups, output {out_bytes} B")
+    sms = torch.cuda.get_device_properties(lab.dev).multi_processor_count
+    log("lab blocks: " + ", ".join(
+        f"{r} reader {lc.BLOCKS_PER_SM[r]} per SM x {sms} SMs, spans of "
+        "%d-%d chunks" % lc.hist_spans(r, lab.n_chunks, sms)
+        for r in lc.BLOCKS_PER_SM)
+        + f"; run_group sub-ranges of {lc.GROUP_SPAN} chunks; "
+        f"{lc.BLOCK_SMEM_BYTES} B of shared memory (16-bit counts) per "
+        f"block, flushed at least every {lc.PIECE_SLOTS} slots")
     rows = []
     for name, variant, slot_bytes, slot_ops, replaces in LAB_ROWS:
         if variant is None:
@@ -697,7 +708,37 @@ def phase_lab() -> list:
             launches=launches[name], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms))
+    lab_one_position()
     return rows
+
+
+def lab_one_position() -> None:
+    """The lab's events all at one position and strand, so one cell takes
+    every slot of a chunk (the worst case for atomics to one address):
+    kernel == plain == oracle for run_variant, run_rep8 and run_group."""
+    import numpy as np
+    import torch
+
+    from modkit_tpu_torch.tools import kernel_lab
+    from modkit_tpu_torch.tools.true_bench import cuda_time_ms
+
+    events = kernel_lab.one_position_events(kernel_lab.EVENTS,
+                                            kernel_lab.POSITIONS)
+    lab = kernel_lab.LabInputs.build(events, kernel_lab.POSITIONS, "cuda")
+    oracle = torch.from_numpy(lab.oracle()).to(lab.dev)
+    require(int(np.count_nonzero(lab.oracle())) == 1,
+            "one-position lab: more than one cell")
+    for name, variant in (("run_variant", "int8x1"),
+                          ("run_rep8", "rep8-int8"),
+                          ("run_group", "group-int8")):
+        kern, plain, _ = kernel_lab.variant_call(variant, lab)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        require(torch.equal(got, want) and torch.equal(got, oracle),
+                f"one-position lab: {name} kernel != plain or the oracle")
+        ms, _ = cuda_time_ms(kern, 20)
+        log(f"lab one-position {name} ({variant}): {lab.n_chunks} chunks "
+            f"on one cell, kernel {ms:.5f} ms; == plain == oracle")
 
 
 def main() -> int:

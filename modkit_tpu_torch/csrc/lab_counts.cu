@@ -12,30 +12,51 @@
 //
 // Bound: bytes on paper. An event slot reads 2 to 16 bytes, the output is
 // 12.85 MB at the lab's shape, and a histogram does a handful of integer
-// operations per slot. Hopper has integer atomics in L2 (which holds the
-// output), so each kernel is a scatter: one thread per slot reads the
-// slot's values and atomicAdds into the cell; the wrapper zeroes `out`. On
-// the H100 the L2 atomic transactions (one per slot, to a random cell of
-// the group's block) bound it, whatever bytes a slot brings; privatising a
-// group's histogram in shared memory or counting with tensor-core one-hot
-// products is later work.
+// operations per slot. The lab's events are sorted by position, so the
+// slots of one (position, strand) -- about 21 at the lab's shape -- lie
+// side by side and land on one cell: one global atomic per slot (the first
+// design) serialised on a few addresses per warp, ran at 62-71 Gslots/s
+// whatever the bytes, and took 3 ms where every event sits at one position.
+// The histogram bodies here:
+//   - privatise: a block counts a contiguous span of chunks into one
+//     group's block in shared memory, as 16-bit counts two to a 32-bit word
+//     (32 KB). Where c2g changes inside the span, after every kPieceSlots
+//     slots (so no count carries into its neighbour) and at the span's end,
+//     the block flushes: it atomicAdds only the nonzero cells to the zeroed
+//     output and zeroes its block again. Exact for any order of c2g; a
+//     sorted plan flushes once per (group, block).
+//   - fill the card in one wave: the grid is kBlocksPerSm blocks per SM
+//     (what registers and shared memory allow), the chunks shared out
+//     evenly (spans of 4-5, 3-4 and 5-6 chunks for the planes, rows and
+//     rep8 readers at the lab's 2 149 chunks on 132 SMs).
+//   - aggregate: a lane's 16 consecutive slots add each run of equal cells
+//     once (one or two runs at the lab's data). Warp-wide aggregation
+//     (__match_any_sync over the lanes, or a ballot over runs of lanes) was
+//     slower on the H100 at the lab's shape.
+//   - 16-byte loads: a lane takes 16 consecutive slots, one uint4 of each
+//     u8 row (rep8: each of the 16 rows); for the int32 planes each load of
+//     a warp reads 512 consecutive bytes (lane l takes slots 4 l .. 4 l + 3
+//     of each 128). Chunks are multiples of 128 slots (512 for the planes)
+//     and the wrappers refuse a base pointer that is not 16-byte aligned,
+//     so every load is aligned.
 //
 // A value outside [0, 128) (col 255 = invalid, u8 values above 127, a
 // negative int32) matches no output row or lane in the TPU kernels; here it
 // is dropped, never used as an index. Chunks of a group index outside
 // [0, n_groups), and run_group chunk ranges past the chunks, count nowhere
-// too, as in the plain versions. Atomics count in any order, so c2g need
-// not be sorted here (the TPU kernels needed it).
+// too, as in the plain versions.
 //
 // Bodies:
 //   (a) hist_kernel, templated over the slot layout: PlanesReader (p2 u8,
 //       col i32, valid i32: run_variant, run_bigk), RowsReader (p2 u8, col
 //       u8 with 255 = invalid: run_bigk_host), Rep8Reader (8 rows per chunk:
 //       run_rep8, _count_call);
-//   (b) group_kernel: one block per group over its chunk range (run_group);
-//   (c) diag_kernel: run_diag's four modes and run_rep8's two ablations.
+//   (b) group_kernel: blocks over (group, a sub-range of its gmeta chunk
+//       range), RowsReader over the packed chunks (run_group);
+//   (c) diag_kernel: run_diag's four modes and run_rep8's two ablations,
+//       one global atomic per counted slot.
 
-#include "call.cuh"  // grid_for, mk_cuda_error_string
+#include "call.cuh"  // mk_cuda_error_string
 
 namespace {
 
@@ -45,6 +66,14 @@ constexpr int kCells = kP2 * kLanes;  // one group's block
 constexpr int kCR = 16;               // rows of a 2048-slot chunk
 constexpr int kRep = 8;               // rows of a rep8 chunk
 constexpr int kThreads = 256;
+constexpr int kVec = 16;              // slots a thread loads at once
+// The shared block holds a group's cells as 16-bit counts, two to a word
+// (32 KB). A cell gains at most one per slot, so a block flushes at least
+// every kPieceSlots slots and no count carries into its neighbour.
+constexpr int kSmemBytes = kCells * 2;
+constexpr int kPieceSlots = 32768;
+// a group_kernel block takes sub-ranges of kGroupSpan chunks
+constexpr int kGroupSpan = 2;
 
 __device__ __forceinline__ void add_cell(int32_t* __restrict__ out_g, int i,
                                          int j, int v = 1) {
@@ -52,81 +81,332 @@ __device__ __forceinline__ void add_cell(int32_t* __restrict__ out_g, int i,
     atomicAdd(&out_g[i * kLanes + j], v);
 }
 
-// Slot k of chunk c; slot-major planes (e = c * chunk + k).
+// Adds n to cell `cell` of the 16-bit shared block.
+__device__ __forceinline__ void add16(uint32_t* __restrict__ h, int cell,
+                                      int n) {
+  atomicAdd(&h[cell >> 1], (uint32_t)n << (16 * (cell & 1)));
+}
+
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return __ldg(static_cast<const uint4*>(p));
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int w) {
+  return w == 0 ? v.x : w == 1 ? v.y : w == 2 ? v.z : v.w;
+}
+
+// Byte s of 16 loaded bytes.
+__device__ __forceinline__ int byte_of(const uint4& v, int s) {
+  return (word(v, s >> 2) >> (8 * (s & 3))) & 0xff;
+}
+
+__device__ __forceinline__ void zero_block(uint32_t* __restrict__ h) {
+  uint4* h4 = reinterpret_cast<uint4*>(h);
+  for (int q = threadIdx.x; q < kCells / 8; q += blockDim.x)
+    h4[q] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+}
+
+// Adds the nonzero cells of the shared block to out_g; zeroes the block
+// again where more counting follows.
+__device__ __forceinline__ void flush(uint32_t* __restrict__ h,
+                                      int32_t* __restrict__ out_g,
+                                      bool rezero) {
+  __syncthreads();
+  uint4* h4 = reinterpret_cast<uint4*>(h);
+  for (int q = threadIdx.x; q < kCells / 8; q += blockDim.x) {
+    const uint4 v = h4[q];
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const uint32_t x = word(v, w);
+      if (x & 0xffffu) atomicAdd(&out_g[8 * q + 2 * w], (int)(x & 0xffffu));
+      if (x >> 16) atomicAdd(&out_g[8 * q + 2 * w + 1], (int)(x >> 16));
+    }
+    if (rezero) h4[q] = make_uint4(0, 0, 0, 0);
+  }
+  if (rezero) __syncthreads();
+}
+
+// Adds the 16 cells (-1 = none) of a lane's item to the shared block, each
+// run of equal cells once: sorted events put the ~21 slots of a (position,
+// strand) side by side, so a lane's 16 slots hold one or two runs.
+__device__ __forceinline__ void add_runs(uint32_t* __restrict__ h,
+                                         const int (&cell)[kVec]) {
+  int cur = cell[0], n = 1;
+#pragma unroll
+  for (int s = 1; s < kVec; ++s) {
+    if (cell[s] == cur) {
+      ++n;
+    } else {
+      if (cur >= 0) add16(h, cur, n);
+      cur = cell[s];
+      n = 1;
+    }
+  }
+  if (cur >= 0) add16(h, cur, n);
+}
+
+// Readers: load() brings the bytes of one item (kVec slots of a lane) in
+// 16-byte loads; cells() gives each slot's cell, -1 where it counts nowhere
+// (has = false: every slot). kBlocksPerSm of a reader's blocks fit an SM
+// (registers and shared memory), and its grid is one wave of them.
+
+// Slot-major planes (e = c * chunk + k). A warp's 32 items are 512
+// consecutive slots; lane l takes slots 128 q + 4 l .. 128 q + 4 l + 3 of
+// them for q < 4, so that each load of the warp reads 512 consecutive
+// bytes of an int32 plane (chunk is a multiple of 512).
 struct PlanesReader {
   const uint8_t* __restrict__ p2;
   const int32_t* __restrict__ col;
   const int32_t* __restrict__ valid;
-  __device__ void operator()(int64_t c, int k, int chunk,
-                             int32_t* __restrict__ out_g) const {
-    const int64_t e = c * chunk + k;
-    if (valid[e] != 0) add_cell(out_g, p2[e], col[e]);
+  static constexpr int kBlocksPerSm = 4;
+  struct Data {
+    uint32_t p[4];
+    uint4 cv[4], vv[4];
+  };
+  __device__ Data load(int64_t c, int k, int chunk) const {
+    Data d;
+    const int lane = threadIdx.x & 31;
+    const int64_t e = c * chunk + k - kVec * lane + 4 * lane;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      d.p[q] = __ldg(reinterpret_cast<const uint32_t*>(p2 + e + 128 * q));
+      d.cv[q] = load16(col + e + 128 * q);
+      d.vv[q] = load16(valid + e + 128 * q);
+    }
+    return d;
+  }
+  __device__ void cells(const Data& d, bool has, int64_t, int, int,
+                        uint32_t* __restrict__, int (&cell)[kVec]) const {
+#pragma unroll
+    for (int s = 0; s < kVec; ++s) {
+      const int i = (d.p[s >> 2] >> (8 * (s & 3))) & 0xff;
+      const int j = (int)word(d.cv[s >> 2], s & 3);
+      const bool ok = has && word(d.vv[s >> 2], s & 3) != 0 && i < kP2 &&
+                      (unsigned)j < (unsigned)kLanes;
+      cell[s] = ok ? i * kLanes + j : -1;
+    }
   }
 };
 
+// u8 p2 and col (255 = invalid) of slot k of chunk c at c * stride + k:
+// run_bigk_host's rows (col = its own plane, stride = chunk) and
+// run_group's packed chunks (col = p2 + 2048, stride = 4096).
 struct RowsReader {
   const uint8_t* __restrict__ p2;
   const uint8_t* __restrict__ col;
-  __device__ void operator()(int64_t c, int k, int chunk,
-                             int32_t* __restrict__ out_g) const {
-    const int64_t e = c * chunk + k;
-    add_cell(out_g, p2[e], col[e]);
+  int64_t stride;
+  static constexpr int kBlocksPerSm = 5;
+  struct Data {
+    uint4 p, q;
+  };
+  __device__ Data load(int64_t c, int k, int) const {
+    return Data{load16(p2 + c * stride + k), load16(col + c * stride + k)};
+  }
+  __device__ void cells(const Data& d, bool has, int64_t, int, int,
+                        uint32_t* __restrict__, int (&cell)[kVec]) const {
+#pragma unroll
+    for (int s = 0; s < kVec; ++s) {
+      const int i = byte_of(d.p, s), j = byte_of(d.q, s);
+      cell[s] = has && i < kP2 && j < kLanes ? i * kLanes + j : -1;
+    }
   }
 };
 
 // Output row i reads replica row i % 8, column j replica row j % 8: a value
-// v of row a counts as row v only when v % 8 == a. With identical rows
-// exactly one (a, b) pair matches and this is the histogram.
+// v of row a counts as row v only when v % 8 == a (and v < 128, i.e.
+// (v & 0x87) == a). Every matching (a, b) pair of a slot adds at (v_a, v_b)
+// (distinct cells, since v_a % 8 == a); with identical rows exactly one pair
+// matches and this is the histogram. A slot with more than one pair (rows
+// that differ) adds its pairs to the shared block itself and hands the
+// adder no cell.
 struct Rep8Reader {
   const uint8_t* __restrict__ p2r;
   const uint8_t* __restrict__ colr;
-  __device__ void operator()(int64_t c, int k, int chunk,
-                             int32_t* __restrict__ out_g) const {
-    const int64_t row0 = c * kRep;
+  static constexpr int kBlocksPerSm = 3;
+  struct Data {
+    uint4 x[kRep], y[kRep];
+  };
+
+  __device__ Data load(int64_t c, int k, int chunk) const {
+    Data d;
 #pragma unroll
     for (int a = 0; a < kRep; ++a) {
-      const int vi = p2r[(row0 + a) * chunk + k];
-      if (vi >= kP2 || (vi & (kRep - 1)) != a) continue;
-#pragma unroll
+      d.x[a] = load16(p2r + (c * kRep + a) * chunk + k);
+      d.y[a] = load16(colr + (c * kRep + a) * chunk + k);
+    }
+    return d;
+  }
+
+  // Adds every matching pair of the slot at `base` (row 0, the slot).
+  __device__ static void add_pairs(const uint8_t* __restrict__ r,
+                                   const uint8_t* __restrict__ s,
+                                   int64_t base, int chunk,
+                                   uint32_t* __restrict__ h) {
+    for (int a = 0; a < kRep; ++a) {
+      const int x = r[base + (int64_t)a * chunk];
+      if ((x & 0x87) != a) continue;
       for (int b = 0; b < kRep; ++b) {
-        const int vj = colr[(row0 + b) * chunk + k];
-        if (vj < kLanes && (vj & (kRep - 1)) == b) add_cell(out_g, vi, vj);
+        const int y = s[base + (int64_t)b * chunk];
+        if ((y & 0x87) == b) add16(h, x * kLanes + y, 1);
       }
+    }
+  }
+
+  __device__ void cells(const Data& d, bool has, int64_t c, int k, int chunk,
+                        uint32_t* __restrict__ h, int (&cell)[kVec]) const {
+    // per byte: the number of matching rows (n) and, where it is one, the
+    // matching value (v: the OR of the matching bytes)
+    uint32_t ni[4] = {}, vi[4] = {}, nj[4] = {}, vj[4] = {};
+#pragma unroll
+    for (int a = 0; a < kRep; ++a) {
+      const uint32_t pat = 0x01010101u * a;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const uint32_t mx = __vcmpeq4(word(d.x[a], w) & 0x87878787u, pat);
+        const uint32_t my = __vcmpeq4(word(d.y[a], w) & 0x87878787u, pat);
+        ni[w] += mx & 0x01010101u;
+        vi[w] |= word(d.x[a], w) & mx;
+        nj[w] += my & 0x01010101u;
+        vj[w] |= word(d.y[a], w) & my;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kVec; ++s) {
+      const int w = s >> 2, sh = 8 * (s & 3);
+      const int np =
+          has ? (int)(((ni[w] >> sh) & 0xff) * ((nj[w] >> sh) & 0xff)) : 0;
+      cell[s] = np == 1 ? (int)(((vi[w] >> sh) & 0xff) * kLanes +
+                                ((vj[w] >> sh) & 0xff))
+                        : -1;
+      if (np > 1) add_pairs(p2r, colr, c * kRep * chunk + k + s, chunk, h);
     }
   }
 };
 
+// Counts the items [i_begin, i_end) of kVec slots, warp by warp (every lane
+// of a warp runs the same iterations); at(i, c, k) gives item i's chunk and
+// first slot and whether it counts.
+template <class Reader, class At>
+__device__ __forceinline__ void count_items(const Reader& rd, int i_begin,
+                                            int i_end, int chunk,
+                                            uint32_t* __restrict__ h, At at) {
+  const int lane = threadIdx.x & 31;
+  for (int i0 = i_begin + threadIdx.x - lane; i0 < i_end; i0 += blockDim.x) {
+    const int i = i0 + lane;
+    int64_t c = 0;
+    int k = 0;
+    const bool has = i < i_end && at(i, c, k);
+    const typename Reader::Data d =
+        has ? rd.load(c, k, chunk) : typename Reader::Data{};
+    int cell[kVec];
+    rd.cells(d, has, c, k, chunk, h, cell);
+    add_runs(h, cell);
+  }
+}
+
+// Block b of B counts chunks [b n_chunks / B, (b + 1) n_chunks / B) (at
+// most kThreads): each run of equal c2g in pieces of at most kPieceSlots
+// slots, flushing after each piece.
 template <class Reader>
-__global__ void hist_kernel(Reader rd, const int32_t* __restrict__ c2g,
-                            int64_t n_chunks, int chunk, int n_groups,
-                            int32_t* __restrict__ out) {
-  for (int64_t c = blockIdx.x; c < n_chunks; c += gridDim.x) {
-    const int g = c2g[c];
-    if (g < 0 || g >= n_groups) continue;
-    int32_t* out_g = out + (int64_t)g * kCells;
-    for (int k = threadIdx.x; k < chunk; k += blockDim.x) rd(c, k, chunk, out_g);
+__global__ void __launch_bounds__(kThreads, Reader::kBlocksPerSm)
+    hist_kernel(Reader rd, const int32_t* __restrict__ c2g, int64_t n_chunks,
+                int chunk, int n_groups, int32_t* __restrict__ out) {
+  extern __shared__ uint4 smem[];
+  __shared__ int span_g[kThreads];  // c2g of the block's span
+  uint32_t* h = reinterpret_cast<uint32_t*>(smem);
+  const int64_t c_begin = blockIdx.x * n_chunks / gridDim.x;
+  const int n = (int)((blockIdx.x + 1) * n_chunks / gridDim.x - c_begin);
+  const int per_chunk = chunk / kVec;
+  const int per_piece = kPieceSlots / kVec;
+  for (int t = threadIdx.x; t < n; t += blockDim.x)
+    span_g[t] = c2g[c_begin + t];
+  zero_block(h);
+  for (int t = 0; t < n;) {
+    const int g = span_g[t];
+    int e = t + 1;
+    while (e < n && span_g[e] == g) ++e;
+    if ((unsigned)g < (unsigned)n_groups) {
+      const int64_t c0 = c_begin + t;
+      const int items = (e - t) * per_chunk;
+      for (int i = 0; i < items; i += per_piece) {
+        const int i_end = items - i < per_piece ? items : i + per_piece;
+        count_items(rd, i, i_end, chunk, h, [&](int j, int64_t& c, int& k) {
+          c = c0 + j / per_chunk;
+          k = (j % per_chunk) * kVec;
+          return true;
+        });
+        flush(h, out + (int64_t)g * kCells, e < n || i_end < items);
+      }
+    }
+    t = e;
   }
 }
 
 // gmeta: counts [n_groups], then starts [n_groups]; packed: per chunk kCR
-// rows of p2, then kCR rows of col (255 = invalid), kLanes wide.
-__global__ void group_kernel(const int32_t* __restrict__ gmeta,
-                             const uint8_t* __restrict__ packed,
-                             int n_groups, int64_t n_chunks,
-                             int32_t* __restrict__ out) {
+// rows of p2, then kCR rows of col (255 = invalid), kLanes wide. Block
+// (g, x) of gridDim.y counts sub-ranges x, x + gridDim.y, ... of kGroupSpan
+// chunks of group g's range, flushing after each kPieceSlots slots and at
+// the end.
+__global__ void __launch_bounds__(kThreads, RowsReader::kBlocksPerSm)
+    group_kernel(const int32_t* __restrict__ gmeta,
+                 const uint8_t* __restrict__ packed, int n_groups,
+                 int64_t n_chunks, int32_t* __restrict__ out) {
   constexpr int kSlots = kCR * kLanes;
-  for (int g = blockIdx.x; g < n_groups; g += gridDim.x) {
-    const int cnt = gmeta[g];
-    const int start = gmeta[n_groups + g];
-    int32_t* out_g = out + (int64_t)g * kCells;
-    for (int ci = 0; ci < cnt; ++ci) {
-      const int64_t c = (int64_t)start + ci;
-      if (c < 0 || c >= n_chunks) continue;
-      const uint8_t* blk = packed + c * 2 * kSlots;
-      for (int s = threadIdx.x; s < kSlots; s += blockDim.x)
-        add_cell(out_g, blk[s], blk[kSlots + s]);
+  constexpr int kPerChunk = kSlots / kVec;
+  constexpr int kSubsPerPiece = kPieceSlots / (kGroupSpan * kSlots);
+  extern __shared__ uint4 smem[];
+  uint32_t* h = reinterpret_cast<uint32_t*>(smem);
+  const int g = blockIdx.x;
+  const int64_t cnt = gmeta[g];
+  const int64_t start = gmeta[n_groups + g];
+  if ((int64_t)blockIdx.y * kGroupSpan >= cnt) return;  // no sub-range here
+  int32_t* out_g = out + (int64_t)g * kCells;
+  zero_block(h);
+  const RowsReader rd{packed, packed + kSlots, 2 * kSlots};
+  int subs = 0;
+  for (int64_t sub = blockIdx.y; sub * kGroupSpan < cnt; sub += gridDim.y) {
+    if (subs++ == kSubsPerPiece) {
+      flush(h, out_g, true);
+      subs = 1;
     }
+    const int64_t c0 = start + sub * kGroupSpan;
+    const int64_t left = cnt - sub * kGroupSpan;
+    const int n = left < kGroupSpan ? (int)left : kGroupSpan;
+    count_items(rd, 0, n * kPerChunk, kSlots, h,
+                [&](int i, int64_t& c, int& k) {
+                  c = c0 + i / kPerChunk;
+                  k = (i % kPerChunk) * kVec;
+                  return c >= 0 && c < n_chunks;
+                });
   }
+  flush(h, out_g, false);
+}
+
+// The current device's SM count.
+int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)e;
+}
+
+// One wave of Reader::kBlocksPerSm blocks on each SM over the chunks,
+// shared out evenly; more blocks where a span would pass kThreads chunks.
+template <class Reader>
+int launch_hist(const Reader& rd, const int32_t* c2g, int64_t n_chunks,
+                int chunk, int n_groups, int32_t* out, cudaStream_t st) {
+  int sms = 0;
+  const int rc = sm_count(&sms);
+  if (rc != 0) return rc;
+  const int64_t wave = (int64_t)Reader::kBlocksPerSm * sms;
+  const int64_t least = (n_chunks + kThreads - 1) / kThreads;
+  int64_t blocks = wave > least ? wave : least;
+  if (blocks > n_chunks) blocks = n_chunks;
+  hist_kernel<Reader><<<(unsigned int)blocks, kThreads, kSmemBytes, st>>>(
+      rd, c2g, n_chunks, chunk, n_groups, out);
+  return (int)cudaGetLastError();
 }
 
 enum DiagMode {
@@ -194,47 +474,51 @@ unsigned int chunk_grid(int64_t n_chunks) {
 
 // layout 0: a = p2 u8, b = col i32, v = valid i32; 1: a = p2 u8, b = col u8;
 // 2: a = p2r u8, b = colr u8 (n_chunks * 8 rows of `chunk`). `out` holds
-// n_groups * 128 * 128 zeroed int32.
+// n_groups * 128 * 128 zeroed int32. chunk is a multiple of 128 and a, b,
+// v are 16-byte aligned.
 extern "C" int mk_lab_hist(int32_t layout, const void* c2g, const void* a,
                            const void* b, const void* v, int64_t n_chunks,
                            int32_t chunk, int32_t n_groups, void* out,
                            void* stream) {
-  if (n_chunks <= 0 || chunk <= 0 || n_groups <= 0)
+  if (n_chunks <= 0 || n_groups <= 0 || chunk < kLanes || chunk % kLanes ||
+      (layout == 0 && chunk % (32 * kVec)))
     return (int)cudaErrorInvalidValue;
   const auto* g = static_cast<const int32_t*>(c2g);
   auto* o = static_cast<int32_t*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   const auto* a8 = static_cast<const uint8_t*>(a);
-  const unsigned int grid = chunk_grid(n_chunks);
+  const auto* b8 = static_cast<const uint8_t*>(b);
   switch (layout) {
     case 0:
-      hist_kernel<<<grid, kThreads, 0, st>>>(
+      return launch_hist(
           PlanesReader{a8, static_cast<const int32_t*>(b),
                        static_cast<const int32_t*>(v)},
-          g, n_chunks, chunk, n_groups, o);
-      break;
+          g, n_chunks, chunk, n_groups, o, st);
     case 1:
-      hist_kernel<<<grid, kThreads, 0, st>>>(
-          RowsReader{a8, static_cast<const uint8_t*>(b)}, g, n_chunks, chunk,
-          n_groups, o);
-      break;
+      return launch_hist(RowsReader{a8, b8, chunk}, g, n_chunks, chunk,
+                         n_groups, o, st);
     case 2:
-      hist_kernel<<<grid, kThreads, 0, st>>>(
-          Rep8Reader{a8, static_cast<const uint8_t*>(b)}, g, n_chunks, chunk,
-          n_groups, o);
-      break;
+      return launch_hist(Rep8Reader{a8, b8}, g, n_chunks, chunk, n_groups, o,
+                         st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
+// packed is 16-byte aligned. Each group gets gridDim.y blocks: twice the
+// mean group's sub-ranges, so an even plan fills the card and a large
+// group still spreads (nothing reads gmeta back to the host).
 extern "C" int mk_lab_group(const void* gmeta, const void* packed,
                             int32_t n_groups, int64_t n_chunks, void* out,
                             void* stream) {
   if (n_groups <= 0 || n_chunks <= 0) return (int)cudaErrorInvalidValue;
-  const unsigned int grid = (unsigned int)(n_groups < 65535 ? n_groups : 65535);
-  group_kernel<<<grid, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int64_t per_group =
+      (2 * n_chunks + (int64_t)n_groups * kGroupSpan - 1) /
+      ((int64_t)n_groups * kGroupSpan);
+  const dim3 grid((unsigned int)n_groups,
+                  (unsigned int)(per_group < 65535 ? per_group : 65535));
+  group_kernel<<<grid, kThreads, kSmemBytes,
+                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(gmeta), static_cast<const uint8_t*>(packed),
       n_groups, n_chunks, static_cast<int32_t*>(out));
   return (int)cudaGetLastError();

@@ -32,14 +32,18 @@ change no count. The wrappers keep and validate them, and they select
 nothing. A chunk whose group lies outside [0, n_groups), and a
 ``run_group`` chunk range past the chunks, count nowhere, in the kernels and
 in the plain versions alike. The TPU kernels also needed ``c2g``
-non-decreasing (they zero a group's block where ``c2g`` changes); atomics
-into a zeroed output and ``torch.bincount`` count in any order, so the
+non-decreasing (they zero a group's block where ``c2g`` changes). The
+CUDA histograms count a span of chunks into a group's block in shared
+memory and flush it into the zeroed output with atomics wherever ``c2g``
+changes, which is exact in any order, as ``torch.bincount`` is; so the
 wrappers do not read ``c2g`` back to check it: the lab's planner
 (``count_layout.check_c2g``) checks its plans once, on the host.
 
 Each wrapper runs the plain version for tensors on the CPU and launches
-the kernel for tensors on a CUDA device; anything else raises.
-``LAUNCHES`` counts the kernel launches of each wrapper.
+the kernel for tensors on a CUDA device; anything else raises. The
+kernels load 16 bytes at a time, so on the card the wrappers refuse an
+input whose base pointer is not 16-byte aligned. ``LAUNCHES`` counts the
+kernel launches of each wrapper.
 """
 
 from __future__ import annotations
@@ -59,6 +63,25 @@ ABLATIONS = ("no-dot", "no-construct")
 _LAYOUT = {"planes": 0, "rows": 1, "rep8": 2}
 _DIAG_MODE = {"empty": 0, "onehot-only": 1, "matmul-only": 2, "a-only": 3,
               "no-dot": 4, "no-construct": 5}
+# csrc/lab_counts.cu's block layout: the histogram blocks of each reader
+# that fit an SM (kBlocksPerSm; the grid is one wave of them), a block's
+# 16-bit shared histogram (kSmemBytes), the slots it counts between flushes
+# at most (kPieceSlots) and run_group's sub-range of chunks (kGroupSpan)
+BLOCKS_PER_SM = {"planes": 4, "rows": 5, "rep8": 3}
+BLOCK_SMEM_BYTES = CELLS * 2
+PIECE_SLOTS = 32768
+GROUP_SPAN = 2
+MAX_SPAN = 256
+
+
+def hist_spans(reader: str, n_chunks: int, sms: int) -> tuple[int, int]:
+    """(fewest, most) chunks of a histogram block (``launch_hist``): the
+    chunks shared out evenly over one wave of blocks on ``sms`` SMs, or
+    over more blocks where a span would pass MAX_SPAN chunks."""
+    blocks = min(max(BLOCKS_PER_SM[reader] * sms, -(-n_chunks // MAX_SPAN)),
+                 n_chunks)
+    return n_chunks // blocks, -(-n_chunks // blocks)
+
 
 # kernel launches of each wrapper in this process
 LAUNCHES = dict.fromkeys(
@@ -105,6 +128,15 @@ def _check_numel(what, name, t, want):
     if t.numel() != want:
         raise ValueError(f"{what}: {name} holds {t.numel()} values, "
                          f"expected {want}")
+
+
+def check_aligned(what: str, named: dict) -> None:
+    """Raise unless every tensor's base pointer is 16-byte aligned, as the
+    kernels' 16-byte loads need."""
+    for name, t in named.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned "
+                             f"(base pointer {t.data_ptr():#x})")
 
 
 def _check_c2g(what, c2g, n_chunks):
@@ -277,6 +309,7 @@ def _planes_hist(what, c2g, p2, col, valid, n_groups):
     dev = _planes(what, c2g, p2, col, valid)
     if dev.type == "cpu":
         return hist_plain(c2g, p2, col, valid, n_groups)
+    check_aligned(what, {"p2": p2, "col": col, "valid": valid})
     return _launch(what, "mk_lab_hist", _LAYOUT["planes"], c2g.data_ptr(),
                    p2.data_ptr(), col.data_ptr(), valid.data_ptr(),
                    c2g.numel(), CHUNK, n_groups, n_groups=n_groups, dev=dev)
@@ -325,6 +358,7 @@ def run_bigk_host(c2g, p2_rows, col_rows, *, n_groups: int, oh, acc):
     _check_c2g(what, c2g, n_chunks)
     if dev.type == "cpu":
         return hist_plain(c2g, p2_rows, col_rows, None, n_groups)
+    check_aligned(what, {"p2_rows": p2_rows, "col_rows": col_rows})
     return _launch(what, "mk_lab_hist", _LAYOUT["rows"], c2g.data_ptr(),
                    p2_rows.data_ptr(), col_rows.data_ptr(), None, n_chunks,
                    CHUNK, n_groups, n_groups=n_groups, dev=dev)
@@ -348,6 +382,7 @@ def _rep8(what, c2g, p2r, colr, n_groups, chunk, ablation=None):
     args = (c2g.data_ptr(), p2r.data_ptr(), colr.data_ptr(), None, n_chunks,
             chunk, n_groups)
     if ablation is None:
+        check_aligned(what, {"p2r": p2r, "colr": colr})
         return _launch(what, "mk_lab_hist", _LAYOUT["rep8"], *args,
                        n_groups=n_groups, dev=dev)
     return _launch(what, "mk_lab_diag", _DIAG_MODE[ablation], *args,
@@ -391,5 +426,6 @@ def run_group(gmeta, packed, *, n_groups: int, oh, acc, n_acc: int = 1):
                          f"{tuple(gmeta.shape)}")
     if dev.type == "cpu":
         return group_plain(gmeta, packed, n_groups)
+    check_aligned(what, {"packed": packed})
     return _launch(what, "mk_lab_group", gmeta.data_ptr(), packed.data_ptr(),
                    n_groups, n_chunks, n_groups=n_groups, dev=dev)

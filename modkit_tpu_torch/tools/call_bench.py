@@ -1,6 +1,8 @@
-"""Kernel A's f32 entry and kernel B against a build of other CUDA sources.
+"""Kernel A's f32 entry and kernel B, or the count-kernel lab's histogram
+bodies, against a build of other CUDA sources.
 
     python -m modkit_tpu_torch.tools.call_bench --baseline-csrc DIR [--codes M ...]
+    python -m modkit_tpu_torch.tools.call_bench --baseline-csrc DIR --lab
 
 ``DIR`` is the ``modkit_tpu_torch/csrc`` of another checkout (for example
 unpacked from ``git archive`` of an earlier commit) whose ``state.cu`` and
@@ -14,6 +16,16 @@ version's result exactly, then times ``threshold_state_f32`` and
 so a drift of the card shows as a gap between the two readings of one
 build. One line per (kernel, M), then a JSON object of every reading as
 the last line. It needs a CUDA device and ``nvcc``.
+
+With ``--lab`` it does the same for ``lab_counts.cu`` (whose ``mk_lab_hist``
+and ``mk_lab_group`` keep this checkout's C interface) at the lab's full
+shape (``tools/kernel_lab.py``: 4 194 304 events over 100 000 positions,
+M = 2): each histogram body through its wrapper -- the planes reader
+(``run_variant``), the rows reader (``run_bigk_host``), the rep8 reader at
+chunk 2048 (``count_call``) and 256 (``run_rep8``) and ``run_group`` --
+checked against its plain version and timed in the same order; then
+the planes, rep8 and group bodies with every event at one position and
+strand (``kernel_lab.one_position_events``: one cell takes whole chunks).
 """
 
 from __future__ import annotations
@@ -29,7 +41,9 @@ import torch
 from .. import native
 from ..io.bam import BamReader
 from ..ops import counts, kernels, state
+from ..ops import lab_counts as lc
 from ..utils.synth import make_synthetic_modbam
+from . import kernel_lab
 from .true_bench import cuda_time_ms
 
 TILE = 100_000
@@ -73,23 +87,71 @@ def cases(tile, m: int, dev, rng):
     }
 
 
+def lab_cases(dev):
+    """{body: (kernel call, plain call)} at the lab's full shape."""
+    events = kernel_lab.lab_events(kernel_lab.EVENTS, kernel_lab.POSITIONS)
+    lab = kernel_lab.LabInputs.build(events, kernel_lab.POSITIONS, dev)
+    lab256 = kernel_lab.LabInputs.build(events, kernel_lab.POSITIONS, dev,
+                                        chunk=256)
+    out = {}
+    for body, variant, inputs in (("planes", "int8x1", lab),
+                                  ("rows", "bigkh-int8", lab),
+                                  ("rep8_c256", "rep8-int8-c256", lab256),
+                                  ("group", "group-int8", lab)):
+        out[body] = kernel_lab.variant_call(variant, inputs)[:2]
+    c2g, g = lab.planes[0], lab.n_groups
+    out["rep8"] = (lambda: lc.count_call(c2g, *lab.rep8, n_groups=g),
+                   lambda: lc.rep8_plain(c2g, *lab.rep8, g, lab.chunk))
+    one = kernel_lab.LabInputs.build(
+        kernel_lab.one_position_events(kernel_lab.EVENTS,
+                                       kernel_lab.POSITIONS),
+        kernel_lab.POSITIONS, dev)
+    for body, variant in (("planes_one_position", "int8x1"),
+                          ("rep8_one_position", "rep8-int8"),
+                          ("group_one_position", "group-int8")):
+        out[body] = kernel_lab.variant_call(variant, one)[:2]
+    return out
+
+
+def time_ab(builds, kern, want, reps: int, what: str) -> dict:
+    """{build: [ms, ms]} of ``kern`` in the order this, baseline, baseline,
+    this, each build's result checked against ``want`` first."""
+    ms = {"this": [], "baseline": []}
+    try:
+        for build in ("this", "baseline", "baseline", "this"):
+            # the wrappers launch whatever kernel_lib() returns
+            kernels._libs.update(builds[build])
+            if not torch.equal(kern(), want):
+                raise SystemExit(f"call_bench: {build} {what} != plain")
+            ms[build].append(cuda_time_ms(kern, reps)[0])
+    finally:
+        kernels._libs.clear()
+    return ms
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m modkit_tpu_torch.tools.call_bench",
-        description="Time kernel A's f32 entry and kernel B against a "
-                    "build of other CUDA sources.")
+        description="Time kernel A's f32 entry and kernel B, or with --lab "
+                    "the lab's histogram bodies, against a build of other "
+                    "CUDA sources.")
     ap.add_argument("--baseline-csrc", required=True)
     ap.add_argument("--codes", type=int, nargs="+", default=[1, 2, 4, 8])
     ap.add_argument("--reps", type=int, default=200)
+    ap.add_argument("--lab", action="store_true",
+                    help="time the lab's histogram bodies (lab_counts.cu)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("call_bench times CUDA kernels; no CUDA device")
     dev = torch.device("cuda")
+    libs = ("lab_counts",) if args.lab else LIBS
     builds = {
-        "this": {n: kernels.open_library(n) for n in LIBS},
+        "this": {n: kernels.open_library(n) for n in libs},
         "baseline": {n: kernels.open_library(n, args.baseline_csrc)
-                     for n in LIBS},
+                     for n in libs},
     }
+    if args.lab:
+        return main_lab(builds, dev, args)
     with tempfile.TemporaryDirectory() as work:
         tile = bench_tile(work)
     print(f"device {torch.cuda.get_device_name(0)}; bench tile "
@@ -98,16 +160,7 @@ def main(argv=None) -> int:
     readings = []
     for m in args.codes:
         for name, (kern, plain) in cases(tile, m, dev, rng).items():
-            want = plain()
-            ms = {"this": [], "baseline": []}
-            for build in ("this", "baseline", "baseline", "this"):
-                # the wrappers launch whatever kernel_lib() returns
-                kernels._libs.update(builds[build])
-                if not torch.equal(kern(), want):
-                    raise SystemExit(f"call_bench: {build} {name} != plain "
-                                     f"at M={m}")
-                ms[build].append(cuda_time_ms(kern, args.reps)[0])
-            kernels._libs.clear()
+            ms = time_ab(builds, kern, plain(), args.reps, f"{name} at M={m}")
             row = dict(kernel=name, m=m, n=tile.n_events, **{
                 f"{b}_ms": v for b, v in ms.items()})
             readings.append(row)
@@ -117,6 +170,23 @@ def main(argv=None) -> int:
                   f"{ms['baseline'][1]:.5f} ms, this/baseline "
                   f"{this / base:.3f}; both == plain", flush=True)
     print(json.dumps({"call_bench": readings}))
+    return 0
+
+
+def main_lab(builds, dev, args) -> int:
+    print(f"device {torch.cuda.get_device_name(0)}; lab shape "
+          f"{kernel_lab.EVENTS} events, P={kernel_lab.POSITIONS}; baseline "
+          f"{args.baseline_csrc}", flush=True)
+    readings = []
+    for name, (kern, plain) in lab_cases(dev).items():
+        ms = time_ab(builds, kern, plain(), args.reps, name)
+        readings.append(dict(kernel=name, **{f"{b}_ms": v
+                                             for b, v in ms.items()}))
+        this, base = np.mean(ms["this"]), np.mean(ms["baseline"])
+        print(f"lab {name}: this {ms['this'][0]:.5f}/{ms['this'][1]:.5f} ms, "
+              f"baseline {ms['baseline'][0]:.5f}/{ms['baseline'][1]:.5f} ms, "
+              f"this/baseline {this / base:.3f}; both == plain", flush=True)
+    print(json.dumps({"call_bench_lab": readings}))
     return 0
 
 

@@ -74,6 +74,14 @@ def lab_events(n: int, p: int, m: int = CODES, seed: int = SEED):
     return rpos, strand, base, probs
 
 
+def one_position_events(n: int, p: int, m: int = CODES, seed: int = SEED):
+    """``lab_events`` with every event at position ``p // 2`` on the +
+    strand: every slot of a chunk lands on one cell, the worst case for
+    atomics to one address."""
+    rpos, strand, base, probs = lab_events(n, p, m, seed)
+    return np.full_like(rpos, p // 2), np.zeros_like(strand), base, probs
+
+
 def counters_for(p2, colb, kc: int, km: int):
     """The original's deterministic per-event counter (a function of the
     event's planes, so every chunking agrees), with its u8 arithmetic."""

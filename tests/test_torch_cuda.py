@@ -355,3 +355,178 @@ def test_lab_entry_point_on_cuda(cuda_device):
          "rep8-bf16-c256", "empty", "a-only"], "cuda", LAB_EVENTS,
         LAB_POSITIONS, 2, log=lines.append)
     assert all(r["ok"] for r in res.values()), lines
+
+
+# ---- shapes that stress the histograms' shared-memory group blocks, their
+# spans of chunks and the warp-aggregated increments ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["int8x1", "bigkh-int8", "rep8-int8",
+                                  "rep8-int8-c256", "group-int8"])
+def test_lab_one_position_equals_plain_and_oracle(cuda_device, name):
+    """Every event at one position and strand: one cell takes every slot
+    of a chunk."""
+    from modkit_tpu_torch.tools import kernel_lab
+
+    chunk = 256 if name.endswith("c256") else kernel_lab.CHUNK
+    events = kernel_lab.one_position_events(LAB_EVENTS, LAB_POSITIONS)
+    labs = {dev: kernel_lab.LabInputs.build(events, LAB_POSITIONS, dev,
+                                            chunk=chunk)
+            for dev in ("cuda", "cpu")}
+    oracle = labs["cpu"].oracle()
+    assert np.count_nonzero(oracle) == 1
+    fn, plain, _ = kernel_lab.variant_call(name, labs["cuda"])
+    got = fn()
+    assert torch.equal(got, plain())
+    assert np.array_equal(got.cpu().numpy(), oracle)
+    if name == "rep8-int8":
+        from modkit_tpu_torch.ops import lab_counts
+
+        lab = labs["cuda"]
+        assert torch.equal(lab_counts.count_call(lab.planes[0], *lab.rep8,
+                                                 n_groups=lab.n_groups), got)
+
+
+def _runs(rng, n, lo, hi):
+    """n values in [lo, hi) in runs of 1 to 60 equal values, as sorted
+    events give them."""
+    vals = rng.integers(lo, hi, n)
+    return np.repeat(vals, rng.integers(1, 61, n))[:n]
+
+
+# more chunks than one wave of histogram blocks has blocks, so that each
+# block's span holds several chunks, of unequal spans
+STRESS_CHUNKS = 1601
+
+
+def _c2g_plan(kind, n, rng):
+    """(c2g, n_groups) over n chunks: one group over every chunk; sorted
+    groups of 1 to 9 chunks, whose changes fall inside the blocks' spans;
+    or groups interleaved chunk by chunk, with chunks of no group."""
+    if kind == "one-group":
+        return np.zeros(n, np.int32), 1
+    if kind == "straddle":
+        cnt = rng.integers(1, 10, n)
+        c2g = np.repeat(np.arange(n), cnt)[:n].astype(np.int32)
+        return c2g, int(c2g[-1]) + 1
+    return np.tile(np.array([0, 1, 2, 1, -1, 3], np.int32), n)[:n], 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["one-group", "straddle", "interleaved"])
+@pytest.mark.parametrize("reader", ["planes", "rows", "rep8", "rep8-rows"])
+def test_lab_group_blocks_equal_plain(cuda_device, kind, reader):
+    from modkit_tpu_torch.ops import count_layout, lab_counts
+
+    rng = np.random.default_rng(len(kind) * 10 + len(reader))
+    c2g, g = _c2g_plan(kind, STRESS_CHUNKS, rng)
+    n = len(c2g)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for r in lab_counts.BLOCKS_PER_SM:
+        assert lab_counts.hist_spans(r, n, sms)[0] > 1
+    slots = n * count_layout.CHUNK
+    p2 = _runs(rng, slots, 0, 140).astype(np.uint8)
+    col = _runs(rng, slots, -5, 135).astype(np.int32)
+    valid = (rng.random(slots) < 0.9).astype(np.int32)
+    if reader == "planes":
+        arrays = [p2, col, valid]
+        fn = lambda *a: lab_counts.run_variant(
+            *a, n_groups=g, acc=torch.int32, oh=torch.int8, n_acc=1)
+    elif reader == "rows":
+        arrays = [p2.reshape(n, -1),
+                  np.where(valid != 0, col, 255).astype(np.uint8)
+                  .reshape(n, -1)]
+        fn = lambda *a: lab_counts.run_bigk_host(
+            *a, n_groups=g, oh=torch.int8, acc=torch.int32)
+    elif reader == "rep8":  # identical rows, as the planner makes them
+        arrays = [count_layout.rep8(p2, n),
+                  count_layout.rep8(np.clip(col, 0, 255), n, valid=valid)]
+        fn = lambda *a: lab_counts.count_call(*a, n_groups=g)
+    else:  # rows that differ, at chunk 256: every matching pair adds
+        arrays = [_runs(rng, n * 8 * 256, 0, 256).astype(np.uint8)
+                  .reshape(n * 8, 256) for _ in range(2)]
+        fn = lambda *a: lab_counts.run_rep8(
+            *a, n_groups=g, oh=torch.int8, acc=torch.int32, chunk=256)
+    cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in (c2g, *arrays)]
+    got = fn(*[a.to(cuda_device) for a in cpu])
+    want = fn(*cpu)
+    assert got.sum() > 0 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_lab_counts_past_sixteen_bits_equal_plain(cuda_device):
+    """One cell takes every slot of chunks of 65 536 slots (two pieces of a
+    block's 16-bit counts each), and of a run_group range of 301 chunks."""
+    from modkit_tpu_torch.ops import lab_counts
+
+    chunk, n = 65536, 3
+    c2g = torch.tensor([0, 0, 1], dtype=torch.int32)
+    rows = torch.full((n * 8, chunk), 255, dtype=torch.uint8)
+    rows[5::8] = 13  # 13 % 8 == 5: row 13 of the output, one pair per slot
+    cols = torch.full((n * 8, chunk), 255, dtype=torch.uint8)
+    cols[2::8] = 42  # 42 % 8 == 2
+    kw = dict(n_groups=2, oh=torch.int8, acc=torch.int32, chunk=chunk)
+    got = lab_counts.run_rep8(*[t.to(cuda_device) for t in (c2g, rows, cols)],
+                              **kw)
+    assert int(got[0, 13, 42]) == 2 * chunk and int(got[1, 13, 42]) == chunk
+    assert torch.equal(got.cpu(), lab_counts.run_rep8(c2g, rows, cols, **kw))
+    n_chunks = 301
+    packed = torch.full((n_chunks, 32, 128), 7, dtype=torch.uint8)
+    packed[:, 16:] = 99  # p2 7, col 99 in every slot
+    gmeta = torch.tensor([n_chunks, 0], dtype=torch.int32)
+    got = lab_counts.run_group(gmeta.to(cuda_device),
+                               packed.view(-1, 128).to(cuda_device),
+                               n_groups=1, oh=torch.int8, acc=torch.int32)
+    assert int(got[0, 7, 99]) == n_chunks * 2048 and int(got.sum()) == int(
+        got[0, 7, 99])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranges", ["one-group", "overlapping"])
+def test_lab_run_group_ranges_equal_plain(cuda_device, ranges):
+    from modkit_tpu_torch.ops import lab_counts
+
+    rng = np.random.default_rng(12)
+    n_chunks = 301
+    packed = torch.from_numpy(np.stack(
+        [_runs(rng, 128, 0, 140) for _ in range(n_chunks * 32)])
+        .astype(np.uint8))
+    if ranges == "one-group":
+        cnt, start = np.array([n_chunks]), np.array([0])
+    else:  # ranges that overlap, nest, repeat and run past the chunks
+        cnt = np.array([120, 90, 301, 3, 0, 40, 77])
+        start = np.array([0, 60, 0, 59, 5, 280, 100])
+    gmeta = torch.from_numpy(np.concatenate([cnt, start]).astype(np.int32))
+    kw = dict(n_groups=len(cnt), oh=torch.int8, acc=torch.int32)
+    got = lab_counts.run_group(gmeta.to(cuda_device), packed.to(cuda_device),
+                               **kw)
+    assert got.sum() > 0
+    assert torch.equal(got.cpu(), lab_counts.run_group(gmeta, packed, **kw))
+
+
+@pytest.mark.cuda
+def test_lab_misaligned_base_pointer_raises(cuda_device):
+    from modkit_tpu_torch.ops import count_layout, lab_counts
+
+    n = 3
+    slots = n * count_layout.CHUNK
+    c2g = torch.zeros(n, dtype=torch.int32, device=cuda_device)
+    u8 = torch.zeros(slots * 8 + 16, dtype=torch.uint8, device=cuda_device)
+    i32 = torch.zeros(slots + 4, dtype=torch.int32, device=cuda_device)
+    odd8, odd32 = u8[1:slots + 1], i32[1:slots + 1]
+    ok8, ok32 = u8[:slots], i32[:slots]
+    kw = dict(oh=torch.int8, acc=torch.int32)
+    with pytest.raises(ValueError, match="col is not 16-byte aligned"):
+        lab_counts.run_variant(c2g, ok8, odd32, ok32, n_groups=1, n_acc=1,
+                               **kw)
+    with pytest.raises(ValueError, match="p2_rows is not 16-byte aligned"):
+        lab_counts.run_bigk_host(c2g, odd8.view(n, -1), ok8.view(n, -1),
+                                 n_groups=1, **kw)
+    rows = u8[1:slots * 8 + 1].view(n * 8, -1)
+    with pytest.raises(ValueError, match="p2r is not 16-byte aligned"):
+        lab_counts.count_call(c2g, rows, u8[:slots * 8].view(n * 8, -1),
+                              n_groups=1)
+    gmeta = torch.tensor([n, 0], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="packed is not 16-byte aligned"):
+        lab_counts.run_group(gmeta, u8[1:2 * slots + 1].view(-1, 128),
+                             n_groups=1, **kw)

@@ -481,3 +481,94 @@ def test_lab_raises_without_a_card_unless_asked_for_the_cpu(monkeypatch):
         true_bench.hbm_read_gbps()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call_bench.main(["--baseline-csrc", REPO])
+
+
+# ---- the shapes that stress the CUDA histograms' shared-memory blocks ----
+
+def _stress_lab(shape):
+    """``one-position``: every event at one position and strand, so one
+    cell takes whole chunks; ``one-group``: positions that fit one group,
+    so every chunk belongs to group 0."""
+    if shape == "one-position":
+        events = port_lab.one_position_events(N, P)
+        lab = port_lab.LabInputs.build(events, P, "cpu")
+        assert len(np.unique(lab.oracle().nonzero()[0])) == 1
+        assert np.count_nonzero(lab.oracle()) == 1
+        return lab
+    p = 500
+    lab = port_lab.LabInputs.build(port_lab.lab_events(N, p), p, "cpu")
+    assert lab.n_groups == 1 and lab.n_chunks > 1
+    return lab
+
+
+@pytest.mark.parametrize("fn", ["run_variant", "run_bigk_host", "run_rep8",
+                                "count_call", "run_group"])
+@pytest.mark.parametrize("shape", ["one-position", "one-group"])
+def test_stress_shapes_equal_the_jax_lab(shape, fn):
+    lab = _stress_lab(shape)
+    g = lab.n_groups
+    c2g = lab.planes[0]
+    if fn == "run_variant":
+        got = lc.run_variant(*lab.planes, n_groups=g, acc=torch.int32,
+                             oh=torch.int8, n_acc=1)
+        want = _interpret(jlab.run_variant, *[a.numpy() for a in lab.planes],
+                          n_groups=g, acc=jnp.int32, oh=jnp.int8, n_acc=1)
+    elif fn == "run_bigk_host":
+        got = lc.run_bigk_host(c2g, *lab.rows, n_groups=g, oh=torch.int8,
+                               acc=torch.int32)
+        want = _interpret(jlab.run_bigk_host, lab.c2g,
+                          *[a.numpy() for a in lab.rows], n_groups=g,
+                          oh=jnp.int8, acc=jnp.int32)
+    elif fn == "run_rep8":
+        got = lc.run_rep8(c2g, *lab.rep8, n_groups=g, oh=torch.int8,
+                          acc=torch.int32)
+        want = _interpret(jlab.run_rep8, lab.c2g,
+                          *[a.numpy() for a in lab.rep8], n_groups=g,
+                          oh=jnp.int8, acc=jnp.int32, chunk=cl.CHUNK)
+    elif fn == "count_call":
+        got = lc.count_call(c2g, *lab.rep8, n_groups=g)
+        want = np.asarray(jpc._count_call(
+            lab.c2g, *[a.numpy() for a in lab.rep8], n_groups=g,
+            interpret=True))
+    else:
+        gmeta, packed = lab.packed
+        got = lc.run_group(gmeta, packed, n_groups=g, oh=torch.int8,
+                           acc=torch.int32)
+        want = _interpret(jlab.run_group, gmeta.numpy(), packed.numpy(),
+                          n_groups=g, oh=jnp.int8, acc=jnp.int32,
+                          max_chunks=int(gmeta[:g].max()))
+    _same(got, want, lab.c2g, g)
+    assert np.array_equal(got.numpy(), lab.oracle())
+
+
+def test_block_constants_equal_the_cuda_source():
+    """The span and shared-memory figures that chip_smoke.py prints are the
+    kernel's own."""
+    import re
+
+    with open(os.path.join(REPO, "modkit_tpu_torch", "csrc",
+                           "lab_counts.cu")) as fh:
+        src = fh.read()
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kGroupSpan"] == lc.GROUP_SPAN
+    assert const["kPieceSlots"] == lc.PIECE_SLOTS
+    assert const["kThreads"] == lc.MAX_SPAN
+    assert "kSmemBytes = kCells * 2;" in src
+    assert const["kP2"] * const["kLanes"] * 2 == lc.BLOCK_SMEM_BYTES
+    for reader, n in lc.BLOCKS_PER_SM.items():
+        body = src[src.index(f"struct {reader.capitalize()}Reader {{"):]
+        assert re.search(r"kBlocksPerSm = (\d+);", body).group(1) == str(n)
+    # 16-bit counts: a cell gains at most one per slot between flushes
+    assert lc.PIECE_SLOTS < 1 << 16
+    assert lc.GROUP_SPAN * cl.CHUNK <= lc.PIECE_SLOTS
+    assert lc.hist_spans("planes", 2149, 132) == (4, 5)
+    assert lc.hist_spans("rows", 10**7, 132) == (lc.MAX_SPAN - 1, lc.MAX_SPAN)
+    assert lc.hist_spans("rep8", 7, 132) == (1, 1)
+
+
+def test_alignment_check_refuses_a_misaligned_base_pointer():
+    buf = torch.zeros(4096 + 16, dtype=torch.uint8)
+    lc.check_aligned("run_bigk_host", {"p2_rows": buf[16:]})
+    with pytest.raises(ValueError, match="p2_rows is not 16-byte aligned"):
+        lc.check_aligned("run_bigk_host", {"p2_rows": buf[1:4097]})
