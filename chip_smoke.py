@@ -13,8 +13,9 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
 2. build the kernels (one ``nvcc`` per ``csrc/*.cu``, started together)
    and the host C++ runtime;
 3. the state kernel (``csrc/state.cu``) against its plain PyTorch version,
-   exactly, on a real tile of the bench workload and on ragged sizes, for
-   M in {1, 2, 4, 8} and both entries, with times and bounds;
+   exactly, on a real tile of the bench workload and on ragged sizes (one
+   with N % 16 != 0 at every M, so planes 1.. start unaligned), for M in
+   {1, 2, 4, 8} and both entries, with times and bounds;
 4. the count kernel (``csrc/counts.cu``) against its plain version,
    exactly, at the tile's shape with P = 100 000 and M in {2, 4, 8}, with
    ``torch.bincount`` over precomputed keys as the library yardstick;
@@ -38,10 +39,14 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
    ``csrc/lab_counts.cu``) at its full size (4 194 304 events, P =
    100 000, M = 2) through its entry point, every variant and both rep8
    ablations; then each TPU function's kernel against its plain version
-   and the ``torch.bincount`` oracle, exactly, with times and bounds; then
-   the lab's events all at one position (one cell takes whole chunks) for
-   ``run_variant``, ``run_rep8`` and ``run_group``, kernel == plain ==
-   oracle.
+   and the ``torch.bincount`` oracle, exactly, with times and bounds, and
+   each diag body (``run_diag``'s four modes, ``run_rep8``'s two
+   ablations) against its plain version with its own bound, launches and
+   library call (``diag_library``);
+   then the lab's events all at one position (one cell takes whole
+   chunks) for ``run_variant``, ``run_rep8`` and ``run_group`` (kernel ==
+   plain == oracle) and ``run_diag``'s ``a-only`` and ``onehot-only``
+   (kernel == plain).
 
 Before phase 3 it prints the card's measured peaks (``tools/true_bench.py``:
 HBM read and copy rates, bf16 ``torch.matmul`` rate) beside the data-sheet
@@ -125,7 +130,8 @@ def phase_state(tile, dev) -> dict:
     worst = 0
     entry = None
     for m in (1, 2, 4, 8):
-        for n in (n_main, 1, 127, 128 * 1000 + 3):
+        # n_main - 7: N % 16 != 0, so planes 1.. start unaligned at every M
+        for n in (n_main, 1, 127, 128 * 1000 + 3, n_main - 7):
             if m == tile.m and n == n_main:
                 quals_t, present, zero, base = tile.export_quals_t(n, m)
             else:
@@ -607,12 +613,26 @@ LAB_VARIANTS = (
 # bytes per event slot, integer operations per slot, the TPU function)
 LAB_ROWS = (
     ("run_variant", "int8x1", 9, 4, "tools/kernel_lab.py:81"),
-    ("run_diag", "onehot-only", 9, 6, "tools/kernel_lab.py:160"),
     ("run_bigk", "bigk-int8", 9, 4, "tools/kernel_lab.py:211"),
     ("run_group", "group-int8", 2, 4, "tools/kernel_lab.py:296"),
     ("run_bigk_host", "bigkh-int8", 2, 4, "tools/kernel_lab.py:344"),
     ("run_rep8", "rep8-int8", 16, 24, "tools/kernel_lab.py:412"),
     ("count_call", None, 16, 24, "modkit_tpu/ops/pallas_counts.py:113"),
+)
+# the diag bodies, one row each: (mode or ablation, input bytes per chunk
+# of 2048 slots, integer operations per chunk, the TPU function). What each
+# reads: onehot-only every slot's p2, col and valid (9 B); matmul-only row 0
+# of them (128 slots); a-only every p2 and row 0's col and valid; no-dot
+# the first 128 slots of the 8 rep8 rows of p2r and colr; no-construct one
+# byte of p2r; empty row 0 of p2 and col (the wrapper's zeroing writes the
+# output).
+DIAG_ROWS = (
+    ("empty", 128 * 5, 0, "tools/kernel_lab.py:160"),
+    ("onehot-only", 2048 * 9, 2048 * 6, "tools/kernel_lab.py:160"),
+    ("matmul-only", 128 * 9, 128 * 4, "tools/kernel_lab.py:160"),
+    ("a-only", 2048 + 128 * 8, 2048 * 4, "tools/kernel_lab.py:160"),
+    ("no-dot", 2 * 8 * 128, 2 * 8 * 128 * 3, "tools/kernel_lab.py:412"),
+    ("no-construct", 1, 2, "tools/kernel_lab.py:412"),
 )
 
 
@@ -641,11 +661,14 @@ def phase_lab() -> list:
         finally:
             del os.environ[env]
     launches = dict(lc.LAUNCHES)
+    diag_launches = dict(lc.DIAG_LAUNCHES)
     log(f"kernel lab: {len(LAB_VARIANTS)} variants and 2 ablations in "
         f"{time.perf_counter() - t0:.1f} s (LAB_REPS={reps}); launches "
-        + json.dumps(launches))
+        + json.dumps(launches) + ", diag bodies " + json.dumps(diag_launches))
     for name, *_ in LAB_ROWS:
         require(launches[name] > 0, f"kernel lab: {name} never launched")
+    for mode, *_ in DIAG_ROWS:
+        require(diag_launches[mode] > 0, f"kernel lab: {mode} never launched")
 
     lab = kernel_lab.LabInputs.build(
         kernel_lab.lab_events(kernel_lab.EVENTS, kernel_lab.POSITIONS),
@@ -660,9 +683,6 @@ def phase_lab() -> list:
     require(torch.equal(
         torch.bincount(keys, minlength=cells).int().view(g, lc.P2, lc.LANES),
         oracle), "kernel lab: the numpy and torch oracles differ")
-    lane = torch.arange(lc.LANES, device=lab.dev).repeat(slots // lc.LANES)
-    onehot_keys = torch.cat([grp + p2.long() * lc.LANES + lane,
-                             (grp + col.long() * lc.LANES + lane)[keep]])
     out_bytes = cells * 4
     log(f"kernel lab shape: {lab.n_chunks} chunks, {slots} slots, "
         f"{lab.n_events} events, {g} groups, output {out_bytes} B")
@@ -673,7 +693,10 @@ def phase_lab() -> list:
         for r in lc.BLOCKS_PER_SM)
         + f"; run_group sub-ranges of {lc.GROUP_SPAN} chunks; "
         f"{lc.BLOCK_SMEM_BYTES} B of shared memory (16-bit counts) per "
-        f"block, flushed at least every {lc.PIECE_SLOTS} slots")
+        f"block, flushed at least every {lc.PIECE_SLOTS} slots; diag "
+        + ", ".join(f"{m} {t} threads x {lc.DIAG_SM_THREADS // t} per SM, "
+                    f"runs of <= {lc.DIAG_ALIGN[m]} chunks kept whole"
+                    for m, t in lc.DIAG_THREADS.items()))
     rows = []
     for name, variant, slot_bytes, slot_ops, replaces in LAB_ROWS:
         if variant is None:
@@ -690,9 +713,8 @@ def phase_lab() -> list:
                 f"{name} kernel != the oracle")
         ms, call_ms = cuda_time_ms(kern, 100)
         plain_ms, _ = cuda_time_ms(plain, 5)
-        lib_keys = onehot_keys if variant == "onehot-only" else keys
         lib_ms, _ = cuda_time_ms(
-            lambda: torch.bincount(lib_keys, minlength=cells), 20)
+            lambda: torch.bincount(keys, minlength=cells), 20)
         index_bytes = 2 * g * 4 if name == "run_group" else lab.n_chunks * 4
         nbytes = slots * slot_bytes + index_bytes + out_bytes
         b_ms, b_by = bound(nbytes, float(slots * slot_ops))
@@ -708,14 +730,91 @@ def phase_lab() -> list:
             launches=launches[name], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms))
+    library = diag_library(lab)
+    for mode, chunk_bytes, chunk_ops, replaces in DIAG_ROWS:
+        ablation = mode in lc.ABLATIONS
+        kern, plain, _ = kernel_lab.variant_call(
+            "rep8-int8" if ablation else mode, lab, mode if ablation else None)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max().item())
+        require(torch.equal(got, want), f"diag {mode} kernel != plain")
+        ms, call_ms = cuda_time_ms(kern, 100)
+        plain_ms, _ = cuda_time_ms(plain, 5)
+        lib = library[mode]
+        require(torch.equal(lib().int().view(g, lc.P2, lc.LANES), want),
+                f"diag {mode}: its library call != plain")
+        lib_ms, _ = cuda_time_ms(lib, 20)
+        nbytes = lab.n_chunks * (chunk_bytes + 4) + out_bytes
+        b_ms, b_by = bound(nbytes, float(lab.n_chunks * chunk_ops))
+        log(f"lab diag {mode}: {int((want != 0).sum()) / g:.1f} nonzero "
+            f"cells per group, kernel {ms:.5f} ms (per call {call_ms:.5f} "
+            f"ms), plain {plain_ms:.5f} ms, library {lib_ms:.5f} ms, "
+            f"{nbytes} B, bound {b_ms:.5f} ms ({b_by}), share "
+            f"{b_ms / ms:.3f}; == plain")
+        rows.append(dict(
+            name=f"{'run_rep8' if ablation else 'run_diag'}/{mode}",
+            route="cuda", source="modkit_tpu_torch/csrc/lab_counts.cu",
+            replaces=replaces, launches=diag_launches[mode], max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms))
     lab_one_position()
     return rows
+
+
+def diag_library(lab) -> dict:
+    """{diag mode or ablation: one PyTorch call that computes its output
+    (flat, any integer or float dtype) from precomputed keys}: a
+    ``torch.bincount`` (weighted where a slot adds more than one) or, for
+    ``empty``, ``torch.zeros``."""
+    import torch
+
+    from modkit_tpu_torch.ops import lab_counts as lc
+
+    g, n, chunk = lab.n_groups, lab.n_chunks, lab.chunk
+    cells = g * lc.CELLS
+    c2g, p2, col, valid = lab.planes
+    grp = c2g.long().view(n, 1, 1) * lc.CELLS
+    i = p2.long().view(n, lc.CR, lc.LANES)
+    j = col.long().view(n, lc.CR, lc.LANES)
+    v = valid.view(n, lc.CR, lc.LANES) != 0
+    lane = torch.arange(lc.LANES, device=lab.dev).view(1, 1, lc.LANES)
+    # the lab's plans hold every group in range
+    oki = i < lc.P2
+    onehot = torch.cat([(grp + i * lc.LANES + lane)[oki],
+                        (grp + j * lc.LANES + lane)[v & (j >= 0)
+                                                    & (j < lc.P2)]])
+    j0 = j[:, :1].expand(-1, lc.CR, -1)
+    ok0 = (v[:, :1].expand(-1, lc.CR, -1) & (j0 >= 0) & (j0 < lc.LANES)
+           & oki)
+    a_only = (grp + i * lc.LANES + j0)[ok0]
+    matmul = (grp + i * lc.LANES + j0)[:, 0][ok0[:, 0]]
+    matmul_w = torch.full(matmul.shape, float(lc.CR), device=lab.dev)
+    p2r, colr = (x.long().view(n, lc.REP, chunk)[:, :, :lc.LANES]
+                 for x in lab.rep8)
+    row = torch.arange(lc.REP, device=lab.dev).view(1, lc.REP, 1)
+    no_dot = torch.cat([(grp + x * lc.LANES + lane)[
+        (x < lc.P2) & (x % lc.REP == row)] for x in (p2r, colr)])
+    construct = c2g.long() * lc.CELLS
+    construct_w = chunk * p2r[:, 0, 0].float()
+    return {
+        "empty": lambda: torch.zeros(cells, dtype=torch.int32,
+                                     device=lab.dev),
+        "onehot-only": lambda: torch.bincount(onehot, minlength=cells),
+        "matmul-only": lambda: torch.bincount(matmul, matmul_w,
+                                              minlength=cells),
+        "a-only": lambda: torch.bincount(a_only, minlength=cells),
+        "no-dot": lambda: torch.bincount(no_dot, minlength=cells),
+        "no-construct": lambda: torch.bincount(construct, construct_w,
+                                               minlength=cells),
+    }
 
 
 def lab_one_position() -> None:
     """The lab's events all at one position and strand, so one cell takes
     every slot of a chunk (the worst case for atomics to one address):
-    kernel == plain == oracle for run_variant, run_rep8 and run_group."""
+    kernel == plain == oracle for run_variant, run_rep8 and run_group, and
+    kernel == plain for run_diag's a-only and onehot-only."""
     import numpy as np
     import torch
 
@@ -730,15 +829,20 @@ def lab_one_position() -> None:
             "one-position lab: more than one cell")
     for name, variant in (("run_variant", "int8x1"),
                           ("run_rep8", "rep8-int8"),
-                          ("run_group", "group-int8")):
-        kern, plain, _ = kernel_lab.variant_call(variant, lab)
+                          ("run_group", "group-int8"),
+                          ("run_diag", "a-only"),
+                          ("run_diag", "onehot-only")):
+        kern, plain, histogram = kernel_lab.variant_call(variant, lab)
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        require(torch.equal(got, want) and torch.equal(got, oracle),
-                f"one-position lab: {name} kernel != plain or the oracle")
+        require(torch.equal(got, want)
+                and (not histogram or torch.equal(got, oracle)),
+                f"one-position lab: {name} ({variant}) kernel != plain or "
+                "the oracle")
         ms, _ = cuda_time_ms(kern, 20)
         log(f"lab one-position {name} ({variant}): {lab.n_chunks} chunks "
-            f"on one cell, kernel {ms:.5f} ms; == plain == oracle")
+            f"on one position, kernel {ms:.5f} ms; == plain"
+            + (" == oracle" if histogram else ""))
 
 
 def main() -> int:

@@ -116,6 +116,15 @@ def build_kernels() -> list[str]:
         return list(pool.map(library_path, _SIGNATURES))
 
 
+def check_aligned(what: str, named: dict, align: int = 16) -> None:
+    """Raise unless every tensor's base pointer is ``align``-byte aligned,
+    as the kernels' wide loads need."""
+    for name, t in named.items():
+        if t.data_ptr() % align:
+            raise ValueError(f"{what}: {name} is not {align}-byte aligned "
+                             f"(base pointer {t.data_ptr():#x})")
+
+
 def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise if a kernel entry point returned a CUDA error."""
     if rc != 0:

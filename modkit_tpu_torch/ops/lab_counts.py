@@ -33,17 +33,21 @@ nothing. A chunk whose group lies outside [0, n_groups), and a
 ``run_group`` chunk range past the chunks, count nowhere, in the kernels and
 in the plain versions alike. The TPU kernels also needed ``c2g``
 non-decreasing (they zero a group's block where ``c2g`` changes). The
-CUDA histograms count a span of chunks into a group's block in shared
-memory and flush it into the zeroed output with atomics wherever ``c2g``
-changes, which is exact in any order, as ``torch.bincount`` is; so the
-wrappers do not read ``c2g`` back to check it: the lab's planner
-(``count_layout.check_c2g``) checks its plans once, on the host.
+CUDA histograms and two diagnostics count a span of chunks into a group's
+block in shared memory and flush it into the zeroed output with atomics
+wherever ``c2g`` changes, which is exact in any order, as
+``torch.bincount`` is (``onehot-only`` stores a group's block instead
+where the kernel finds ``c2g`` non-decreasing and the block the group's
+only writer); so the wrappers do not read ``c2g`` back to check it: the
+lab's planner (``count_layout.check_c2g``) checks its plans once, on the
+host.
 
 Each wrapper runs the plain version for tensors on the CPU and launches
 the kernel for tensors on a CUDA device; anything else raises. The
-kernels load 16 bytes at a time, so on the card the wrappers refuse an
-input whose base pointer is not 16-byte aligned. ``LAUNCHES`` counts the
-kernel launches of each wrapper.
+histograms and ``run_diag`` load 16 bytes at a time, so on the card their
+wrappers refuse an input whose base pointer is not 16-byte aligned.
+``LAUNCHES`` counts the kernel launches of each wrapper, ``DIAG_LAUNCHES``
+those of each diag mode and rep8 ablation.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ import threading
 import torch
 
 from .count_layout import CHUNK, CR, LANES, P2, REP
+from .kernels import check_aligned
 
 CELLS = P2 * LANES
 ONEHOT_DTYPES = (torch.bfloat16, torch.int8)
@@ -72,6 +77,16 @@ BLOCK_SMEM_BYTES = CELLS * 2
 PIECE_SLOTS = 32768
 GROUP_SPAN = 2
 MAX_SPAN = 256
+# diag_kernel's (the onehot-only and a-only bodies): threads per block
+# (kThreads; an SM holds DIAG_SM_THREADS of them), the longest run of
+# equal c2g kept in one block (kAlign), the chunks it counts between
+# flushes at most (kDiagPiece) and the most one chunk adds to one cell
+# (the 16-bit bound of csrc/lab_counts.cu)
+DIAG_THREADS = {"onehot-only": 512, "a-only": 256}
+DIAG_SM_THREADS = 1024
+DIAG_ALIGN = {"onehot-only": 16, "a-only": 0}
+DIAG_PIECE_CHUNKS = 16
+DIAG_CELL_GAIN_PER_CHUNK = {"onehot-only": 2 * CR, "a-only": CR * LANES}
 
 
 def hist_spans(reader: str, n_chunks: int, sms: int) -> tuple[int, int]:
@@ -83,17 +98,20 @@ def hist_spans(reader: str, n_chunks: int, sms: int) -> tuple[int, int]:
     return n_chunks // blocks, -(-n_chunks // blocks)
 
 
-# kernel launches of each wrapper in this process
+# kernel launches of each wrapper in this process, and of run_diag and
+# run_rep8 by diag mode and ablation (each of which has its own body)
 LAUNCHES = dict.fromkeys(
     ("run_variant", "run_diag", "run_bigk", "run_group", "run_bigk_host",
      "run_rep8", "count_call"), 0)
+DIAG_LAUNCHES = dict.fromkeys(_DIAG_MODE, 0)
 _lock = threading.Lock()
 
 
 def reset_launches() -> None:
     with _lock:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
+        for counts in (LAUNCHES, DIAG_LAUNCHES):
+            for k in counts:
+                counts[k] = 0
 
 
 # ---- checks ----
@@ -128,15 +146,6 @@ def _check_numel(what, name, t, want):
     if t.numel() != want:
         raise ValueError(f"{what}: {name} holds {t.numel()} values, "
                          f"expected {want}")
-
-
-def check_aligned(what: str, named: dict) -> None:
-    """Raise unless every tensor's base pointer is 16-byte aligned, as the
-    kernels' 16-byte loads need."""
-    for name, t in named.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what}: {name} is not 16-byte aligned "
-                             f"(base pointer {t.data_ptr():#x})")
 
 
 def _check_c2g(what, c2g, n_chunks):
@@ -279,8 +288,10 @@ def ablation_plain(c2g, p2r, colr, n_groups: int, chunk: int, ablation: str):
 
 # ---- wrappers ----
 
-def _launch(what: str, entry: str, *args, n_groups: int, dev) -> torch.Tensor:
-    """Zeroed output, one launch of ``entry`` and its count."""
+def _launch(what: str, entry: str, *args, n_groups: int, dev,
+            diag: str | None = None) -> torch.Tensor:
+    """Zeroed output, one launch of ``entry`` and its count (and that of
+    diag mode or ablation ``diag``)."""
     from .kernels import check_launch, kernel_lib
 
     out = torch.zeros((n_groups, P2, LANES), dtype=torch.int32, device=dev)
@@ -291,6 +302,8 @@ def _launch(what: str, entry: str, *args, n_groups: int, dev) -> torch.Tensor:
     check_launch(lib, rc, what)
     with _lock:
         LAUNCHES[what] += 1
+        if diag is not None:
+            DIAG_LAUNCHES[diag] += 1
     return out
 
 
@@ -338,10 +351,11 @@ def run_diag(c2g, p2, col, valid, *, n_groups: int, mode: str):
     dev = _planes("run_diag", c2g, p2, col, valid)
     if dev.type == "cpu":
         return diag_plain(c2g, p2, col, valid, n_groups, mode)
+    check_aligned("run_diag", {"p2": p2, "col": col, "valid": valid})
     return _launch("run_diag", "mk_lab_diag", _DIAG_MODE[mode],
                    c2g.data_ptr(), p2.data_ptr(), col.data_ptr(),
                    valid.data_ptr(), c2g.numel(), CHUNK, n_groups,
-                   n_groups=n_groups, dev=dev)
+                   n_groups=n_groups, dev=dev, diag=mode)
 
 
 def run_bigk_host(c2g, p2_rows, col_rows, *, n_groups: int, oh, acc):
@@ -386,7 +400,7 @@ def _rep8(what, c2g, p2r, colr, n_groups, chunk, ablation=None):
         return _launch(what, "mk_lab_hist", _LAYOUT["rep8"], *args,
                        n_groups=n_groups, dev=dev)
     return _launch(what, "mk_lab_diag", _DIAG_MODE[ablation], *args,
-                   n_groups=n_groups, dev=dev)
+                   n_groups=n_groups, dev=dev, diag=ablation)
 
 
 def run_rep8(c2g, p2r, colr, *, n_groups: int, oh, acc, chunk: int = CHUNK,

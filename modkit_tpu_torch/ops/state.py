@@ -11,18 +11,26 @@ semantics of MultipleThresholdModCaller::call kept bit-identical (see
 On this card the call is bound by bytes: per event it reads M + 3 bytes
 (class-major u8 quality planes plus present/zero bitmasks and the base) or
 4M + 1 (f32 probabilities plus the base) and writes one byte, with a dozen
-f32 operations per class. The kernel reads each input once with one thread
-per event and takes the thresholds as a by-value argument, so it moves the
-least bytes the call needs. The quals entry takes M in
-``QUALS_CLASSES`` (its present/zero masks are one byte) and unrolls the
-class loop in registers; the f32 entry unrolls those M too and takes any
-other M up to ``MAX_CLASSES`` (the state 2 + j is one byte) through a
-runtime-M kernel, a loop over the classes (slower than the unrolled
-kernels where both apply: ``tools/call_bench.py``, ``PERF.md``).
+f32 operations per class. The kernels read each input once and take the
+thresholds as a by-value argument, so they move the least bytes the call
+needs. The quals entry (the pileup's main path) takes M in
+``QUALS_CLASSES`` (its present/zero masks are one byte), the class loop
+unrolled in registers. For M in ``QUALS_GROUPED_CLASSES`` each thread
+takes ``QUALS_GROUP`` consecutive events in 4-byte loads and one 4-byte
+store, over one wave of blocks; a plane that is not 4-byte aligned
+(N % 4 != 0) takes two loads and a funnel shift, and the last N % 4
+events run one per thread. At M = 8 one thread takes one event: there the
+grouped kernel was slower on the H100 (``tools/call_bench.py``,
+``PERF.md``). The f32 entry keeps one thread per event, unrolls those M
+too and takes any other M up to ``MAX_CLASSES`` (the state 2 + j is one
+byte) through a runtime-M kernel, a loop over the classes (slower than the
+unrolled kernels where both apply).
 
 Each wrapper runs the plain PyTorch version for tensors on the CPU and
 launches the kernel for tensors on a CUDA device; anything else raises. The
-thresholds travel by value, so the kernel takes them as CPU tensors.
+thresholds travel by value, so the kernel takes them as CPU tensors. The
+quals entry refuses an input whose base pointer is not 4-byte aligned
+(``engine._upload`` gives every array a 16-byte-aligned slot).
 """
 
 from __future__ import annotations
@@ -42,6 +50,12 @@ _count_lock = threading.Lock()
 # to MAX_CLASSES (their C entries unroll these counts and loop for others)
 QUALS_CLASSES = (1, 2, 4, 8)
 MAX_CLASSES = 253
+# csrc/state.cu's quals entry: the class counts of its grouped kernel,
+# that kernel's events per thread (kGroup, one 4-byte load of each input)
+# and threads per block (kQualsThreads)
+QUALS_GROUPED_CLASSES = (1, 2, 4)
+QUALS_GROUP = 4
+QUALS_THREADS = 128
 
 
 def _count_launch(f32: bool) -> None:
@@ -184,7 +198,11 @@ def threshold_state_quals_t(quals_t, present, zero, base, thr_mod, thr_can):
     out = torch.empty(n, dtype=torch.uint8, device=dev)
     if n == 0:
         return out
-    from .kernels import check_launch, kernel_lib
+    from .kernels import check_aligned, check_launch, kernel_lib
+
+    check_aligned("threshold_state_quals_t", {
+        "quals_t": quals_t, "present": present, "zero": zero, "base": base},
+        align=QUALS_GROUP)
 
     lib = kernel_lib("state")
     tm = thr_mod.contiguous()

@@ -1,5 +1,5 @@
-"""Kernel A's f32 entry and kernel B, or the count-kernel lab's histogram
-bodies, against a build of other CUDA sources.
+"""Kernel A and kernel B, or the count-kernel lab's bodies, against a
+build of other CUDA sources.
 
     python -m modkit_tpu_torch.tools.call_bench --baseline-csrc DIR [--codes M ...]
     python -m modkit_tpu_torch.tools.call_bench --baseline-csrc DIR --lab
@@ -10,22 +10,28 @@ unpacked from ``git archive`` of an earlier commit) whose ``state.cu`` and
 one process. On the middle 100 kb tile of the bench workload (50 000 reads
 x 5 kb at 25x over a 10 Mbp contig, seed 1, as ``chip_smoke.py`` makes it)
 and for each class count M, it checks that each build gives the plain
-version's result exactly, then times ``threshold_state_f32`` and
-``modcall_counts`` (P = 100 000) with CUDA events
-(``true_bench.cuda_time_ms``) in the order this, baseline, baseline, this,
-so a drift of the card shows as a gap between the two readings of one
-build. One line per (kernel, M), then a JSON object of every reading as
-the last line. It needs a CUDA device and ``nvcc``.
+version's result exactly, then times with CUDA events
+(``true_bench.cuda_time_ms``), in the order this, baseline, baseline, this
+(so a drift of the card shows as a gap between the two readings of one
+build): kernel A's quals entry (``threshold_state_quals_t``, the one the
+pileup launches: the tile's own ``export_quals_t`` planes at its M, random
+planes at the other M), the quals entry at a ragged N (N % 4 != 0, so
+planes 1.. are not 4-byte aligned), kernel A's f32 entry and
+``modcall_counts`` (P = 100 000). One line per (kernel, M), then a JSON
+object of every reading as the last line. It needs a CUDA device and
+``nvcc``.
 
-With ``--lab`` it does the same for ``lab_counts.cu`` (whose ``mk_lab_hist``
-and ``mk_lab_group`` keep this checkout's C interface) at the lab's full
-shape (``tools/kernel_lab.py``: 4 194 304 events over 100 000 positions,
-M = 2): each histogram body through its wrapper -- the planes reader
+With ``--lab`` it does the same for ``lab_counts.cu`` (whose entry points
+keep this checkout's C interface) at the lab's full shape
+(``tools/kernel_lab.py``: 4 194 304 events over 100 000 positions, M = 2):
+each histogram body through its wrapper -- the planes reader
 (``run_variant``), the rows reader (``run_bigk_host``), the rep8 reader at
 chunk 2048 (``count_call``) and 256 (``run_rep8``) and ``run_group`` --
-checked against its plain version and timed in the same order; then
-the planes, rep8 and group bodies with every event at one position and
-strand (``kernel_lab.one_position_events``: one cell takes whole chunks).
+then each ``run_diag`` mode and both ``run_rep8`` ablations (the diag
+bodies), each checked against its plain version and timed in the same
+order; then the planes, rep8, group, ``a-only`` and ``onehot-only`` bodies
+with every event at one position and strand
+(``kernel_lab.one_position_events``: one cell takes whole chunks).
 """
 
 from __future__ import annotations
@@ -64,10 +70,24 @@ def bench_tile(work: str):
     )
 
 
+RAGGED = 7  # the ragged case has N - RAGGED events: N % 16 and N % 4 != 0
+
+
+def quals_planes(tile, m: int, n: int, rng):
+    """(quals_t, present, zero, base) of the quals entry: the tile's own
+    planes at its own M and event count, else random ones."""
+    if m == tile.m and n == tile.n_events:
+        return tile.export_quals_t(n, m)
+    present = rng.integers(0, 1 << m, n).astype(np.uint8)
+    return (rng.integers(0, 256, (m, n)).astype(np.uint8), present,
+            (rng.integers(0, 1 << m, n) & present).astype(np.uint8),
+            rng.integers(0, 4, n).astype(np.uint8))
+
+
 def cases(tile, m: int, dev, rng):
     """{kernel: (kernel call, plain call)} at class count ``m`` on the
-    tile's events: its own probabilities at its own M, else random ones
-    with a fifth of the classes absent."""
+    tile's events: its own planes and probabilities at its own M, else
+    random ones with a fifth of the classes absent."""
     rpos, strand, base, probs = tile.export_events()
     if m != tile.m:
         probs = rng.random((len(base), m), dtype=np.float32) / np.float32(m)
@@ -78,7 +98,16 @@ def cases(tile, m: int, dev, rng):
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     p, b8 = t(probs), t(base.astype(np.uint8))
     ev = [t(rpos % POSITIONS), t(strand), t(base), p]
+    n = tile.n_events
+    q = [t(a) for a in quals_planes(tile, m, n, rng)]
+    qr = [t(a) for a in quals_planes(tile, m, n - RAGGED, rng)]
     return {
+        "state_quals": (
+            lambda: state.threshold_state_quals_t(*q, tm, tc),
+            lambda: state.threshold_state_quals_t_plain(*q, tm, tc)),
+        "state_quals_ragged": (
+            lambda: state.threshold_state_quals_t(*qr, tm, tc),
+            lambda: state.threshold_state_quals_t_plain(*qr, tm, tc)),
         "state_f32": (lambda: state.threshold_state_f32(p, b8, tm, tc),
                       lambda: state.threshold_state_f32_plain(p, b8, tm, tc)),
         "modcall_counts": (
@@ -102,13 +131,20 @@ def lab_cases(dev):
     c2g, g = lab.planes[0], lab.n_groups
     out["rep8"] = (lambda: lc.count_call(c2g, *lab.rep8, n_groups=g),
                    lambda: lc.rep8_plain(c2g, *lab.rep8, g, lab.chunk))
+    for mode in lc.DIAG_MODES:
+        out[f"diag_{mode}"] = kernel_lab.variant_call(mode, lab)[:2]
+    for ablation in lc.ABLATIONS:
+        out[f"rep8_{ablation}"] = kernel_lab.variant_call(
+            "rep8-int8", lab, ablation)[:2]
     one = kernel_lab.LabInputs.build(
         kernel_lab.one_position_events(kernel_lab.EVENTS,
                                        kernel_lab.POSITIONS),
         kernel_lab.POSITIONS, dev)
     for body, variant in (("planes_one_position", "int8x1"),
                           ("rep8_one_position", "rep8-int8"),
-                          ("group_one_position", "group-int8")):
+                          ("group_one_position", "group-int8"),
+                          ("diag_a-only_one_position", "a-only"),
+                          ("diag_onehot-only_one_position", "onehot-only")):
         out[body] = kernel_lab.variant_call(variant, one)[:2]
     return out
 
@@ -132,14 +168,14 @@ def time_ab(builds, kern, want, reps: int, what: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m modkit_tpu_torch.tools.call_bench",
-        description="Time kernel A's f32 entry and kernel B, or with --lab "
-                    "the lab's histogram bodies, against a build of other "
+        description="Time kernels A and B, or with --lab the lab's "
+                    "histogram and diag bodies, against a build of other "
                     "CUDA sources.")
     ap.add_argument("--baseline-csrc", required=True)
     ap.add_argument("--codes", type=int, nargs="+", default=[1, 2, 4, 8])
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--lab", action="store_true",
-                    help="time the lab's histogram bodies (lab_counts.cu)")
+                    help="time the lab's bodies (lab_counts.cu)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("call_bench times CUDA kernels; no CUDA device")
@@ -161,7 +197,8 @@ def main(argv=None) -> int:
     for m in args.codes:
         for name, (kern, plain) in cases(tile, m, dev, rng).items():
             ms = time_ab(builds, kern, plain(), args.reps, f"{name} at M={m}")
-            row = dict(kernel=name, m=m, n=tile.n_events, **{
+            n = tile.n_events - (RAGGED if name.endswith("ragged") else 0)
+            row = dict(kernel=name, m=m, n=n, **{
                 f"{b}_ms": v for b, v in ms.items()})
             readings.append(row)
             this, base = np.mean(ms["this"]), np.mean(ms["baseline"])

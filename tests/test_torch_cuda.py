@@ -72,7 +72,7 @@ def test_upload_and_copy_back_on_cuda(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 2, 4, 8])
-@pytest.mark.parametrize("n", [1, 127, 200_003])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 127, 4111, 200_003])
 def test_state_kernel_equals_plain(cuda_device, m, n):
     quals_t, present, zero, base, thr_mod, thr_can = _state_case(n, m, n + m)
     tm, tc = state.thresholds_to_tensors(thr_mod, thr_can, m)
@@ -94,6 +94,28 @@ def test_state_kernel_equals_plain(cuda_device, m, n):
     assert torch.equal(
         state.threshold_state_f32_plain(probs, args[3], tm, tc), want
     )
+
+
+@pytest.mark.cuda
+def test_state_kernel_misaligned_base_pointer_raises(cuda_device):
+    """The quals entry loads 4 bytes at a time: it refuses an input whose
+    base pointer is not 4-byte aligned, and takes the same bytes at an
+    aligned address."""
+    m, n = 2, 4111
+    quals_t, present, zero, base, thr_mod, thr_can = _state_case(n, m, 5)
+    tm, tc = state.thresholds_to_tensors(thr_mod, thr_can, m)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (quals_t, present, zero, base)]
+    want = state.threshold_state_quals_t_plain(*args, tm, tc)
+    buf = torch.zeros(m * n + 16, dtype=torch.uint8, device=cuda_device)
+    for name, i in (("quals_t", 0), ("present", 1), ("base", 3)):
+        odd = list(args)
+        view = buf[1:1 + args[i].numel()].view(args[i].shape)
+        view.copy_(args[i])
+        odd[i] = view
+        with pytest.raises(ValueError, match=f"{name} is not 4-byte aligned"):
+            state.threshold_state_quals_t(*odd, tm, tc)
+    assert torch.equal(state.threshold_state_quals_t(*args, tm, tc), want)
 
 
 @pytest.mark.cuda
@@ -530,3 +552,134 @@ def test_lab_misaligned_base_pointer_raises(cuda_device):
     with pytest.raises(ValueError, match="packed is not 16-byte aligned"):
         lab_counts.run_group(gmeta, u8[1:2 * slots + 1].view(-1, 128),
                              n_groups=1, **kw)
+    with pytest.raises(ValueError, match="p2 is not 16-byte aligned"):
+        lab_counts.run_diag(c2g, odd8, ok32, ok32, n_groups=1, mode="a-only")
+
+
+# ---- the diag kernel (run_diag's modes, run_rep8's ablations) ----
+
+DIAG = [*["empty", "onehot-only", "matmul-only", "a-only"], "no-dot",
+        "no-construct"]
+
+
+def _diag_call(name, c2g, planes=None, rows=None, g=1, chunk=2048):
+    """run_diag(mode=name) over the planes, or run_rep8(ablation=name) over
+    the rep8 rows."""
+    from modkit_tpu_torch.ops import lab_counts
+
+    if name in lab_counts.DIAG_MODES:
+        return lab_counts.run_diag(c2g, *planes, n_groups=g, mode=name)
+    return lab_counts.run_rep8(c2g, *rows, n_groups=g, oh=torch.int8,
+                               acc=torch.int32, chunk=chunk, ablation=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", DIAG)
+@pytest.mark.parametrize("shape", ["lab", "one-position", "one-group"])
+def test_lab_diag_equals_plain(cuda_device, shape, name):
+    """Each diag body at the lab's data, with every event at one position
+    (one cell takes whole chunks) and with every chunk in group 0 (a run
+    longer than a piece, split over blocks)."""
+    from modkit_tpu_torch.ops import lab_counts
+    from modkit_tpu_torch.tools import kernel_lab
+
+    if shape == "lab":
+        events, p = kernel_lab.lab_events(LAB_EVENTS, LAB_POSITIONS), LAB_POSITIONS
+    elif shape == "one-position":
+        events = kernel_lab.one_position_events(LAB_EVENTS, LAB_POSITIONS)
+        p = LAB_POSITIONS
+    else:
+        events, p = kernel_lab.lab_events(LAB_EVENTS, 500), 500
+    labs = {k: kernel_lab.LabInputs.build(events, p, dev)
+            for k, dev in (("card", cuda_device), ("cpu", "cpu"))}
+    if shape == "one-group":
+        assert labs["cpu"].n_groups == 1
+        assert labs["cpu"].n_chunks > lab_counts.DIAG_PIECE_CHUNKS
+    outs = {k: _diag_call(name, lab.planes[0], lab.planes[1:], lab.rep8,
+                          lab.n_groups)
+            for k, lab in labs.items()}
+    assert torch.equal(outs["card"].cpu(), outs["cpu"])
+    assert name == "empty" or outs["cpu"].sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["a-only", "matmul-only", "no-construct",
+                                  "onehot-only"])
+def test_lab_diag_counts_past_sixteen_bits_equal_plain(cuda_device, name):
+    """One cell takes every slot of 40 chunks of group 0, and of 3 chunks
+    of group 1: the output's count passes 2^16 through the flushes of
+    several blocks (matmul-only and no-construct add to the output
+    directly). A block's own pieces are tested below."""
+    n = 40
+    c2g = torch.zeros(n, dtype=torch.int32)
+    c2g[-3:] = 1
+    slots = n * 2048
+    planes = [torch.full((slots,), 5, dtype=torch.uint8),
+              torch.full((slots,), 5, dtype=torch.int32),
+              torch.ones(slots, dtype=torch.int32)]
+    rows = [torch.full((n * 8, 2048), 255, dtype=torch.uint8)
+            for _ in range(2)]
+    rows[0][::8] = 200  # no-construct: 2048 x 200 per chunk at (0, 0)
+    cpu = _diag_call(name, c2g, planes, rows, g=2)
+    got = _diag_call(name, c2g.to(cuda_device),
+                     [t.to(cuda_device) for t in planes],
+                     [t.to(cuda_device) for t in rows], g=2)
+    assert int(cpu.max()) >= (1 << 16) or name == "onehot-only"
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["a-only", "onehot-only"])
+def test_lab_diag_block_flushes_its_pieces_equal_plain(cuda_device, name):
+    """So many chunks of group 0, each with every slot on one cell, that
+    every block of diag_kernel's wave counts 2 * DIAG_PIECE_CHUNKS + 1 of
+    them: its 16-bit block must flush after each piece (a-only's cell
+    would pass 2^16 within the block after 32 chunks), then 3 chunks of
+    group 1."""
+    from modkit_tpu_torch.ops import lab_counts as lc
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    wave = lc.DIAG_SM_THREADS // lc.DIAG_THREADS[name] * sms
+    per_block = 2 * lc.DIAG_PIECE_CHUNKS + 1
+    n = wave * per_block + 3
+    # one wave, not more blocks: a nominal span holds the block's chunks
+    assert per_block <= lc.DIAG_THREADS[name] - 2 * lc.DIAG_PIECE_CHUNKS - 2
+    if name == "a-only":
+        assert per_block * lc.DIAG_CELL_GAIN_PER_CHUNK[name] >= 1 << 16
+    c2g = torch.zeros(n, dtype=torch.int32, device=cuda_device)
+    c2g[-3:] = 1
+    slots = n * 2048
+    planes = [torch.full((slots,), 5, dtype=torch.uint8, device=cuda_device),
+              torch.full((slots,), 5, dtype=torch.int32, device=cuda_device),
+              torch.ones(slots, dtype=torch.int32, device=cuda_device)]
+    got = lc.run_diag(c2g, *planes, n_groups=2, mode=name)
+    want = lc.diag_plain(c2g, *planes, 2, name)
+    assert int(want[0].max()) == (n - 3) * lc.DIAG_CELL_GAIN_PER_CHUNK[name]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", DIAG)
+@pytest.mark.parametrize("kind", ["one-group", "straddle", "interleaved"])
+def test_lab_diag_group_plans_equal_plain(cuda_device, kind, name):
+    """Runs of c2g shorter and longer than a piece, changing inside the
+    blocks' nominal spans, and groups interleaved chunk by chunk (c2g in no
+    order: every flush adds), on runs of equal values as sorted events
+    give them."""
+    from modkit_tpu_torch.ops import count_layout
+
+    rng = np.random.default_rng(len(kind) * 7 + len(name))
+    c2g, g = _c2g_plan(kind, 601, rng)
+    n = len(c2g)
+    slots = n * count_layout.CHUNK
+    planes = [torch.from_numpy(_runs(rng, slots, 0, 140).astype(np.uint8)),
+              torch.from_numpy(_runs(rng, slots, -5, 135).astype(np.int32)),
+              torch.from_numpy((rng.random(slots) < 0.9).astype(np.int32))]
+    rows = [torch.from_numpy(_runs(rng, n * 8 * 256, 0, 256).astype(np.uint8)
+                             .reshape(n * 8, 256)) for _ in range(2)]
+    c2g = torch.from_numpy(c2g)
+    cpu = _diag_call(name, c2g, planes, rows, g, chunk=256)
+    got = _diag_call(name, c2g.to(cuda_device),
+                     [t.to(cuda_device) for t in planes],
+                     [t.to(cuda_device) for t in rows], g, chunk=256)
+    assert torch.equal(got.cpu(), cpu)

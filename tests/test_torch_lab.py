@@ -572,3 +572,71 @@ def test_alignment_check_refuses_a_misaligned_base_pointer():
     lc.check_aligned("run_bigk_host", {"p2_rows": buf[16:]})
     with pytest.raises(ValueError, match="p2_rows is not 16-byte aligned"):
         lc.check_aligned("run_bigk_host", {"p2_rows": buf[1:4097]})
+
+
+@pytest.mark.parametrize("fn", [*lc.DIAG_MODES, *lc.ABLATIONS])
+@pytest.mark.parametrize("shape", ["one-position", "one-group"])
+def test_diag_stress_shapes_equal_the_jax_lab(monkeypatch, shape, fn):
+    """run_diag's modes and run_rep8's ablations where one cell takes whole
+    chunks (one position) or every chunk is group 0 (one group), the shapes
+    that stress the CUDA diag kernel's 16-bit group block and its spans."""
+    lab = _stress_lab(shape)
+    g = lab.n_groups
+    if fn in lc.DIAG_MODES:
+        got = lc.run_diag(*lab.planes, n_groups=g, mode=fn)
+        want = _interpret(jlab.run_diag, *[a.numpy() for a in lab.planes],
+                          n_groups=g, mode=fn)
+    else:
+        got = lc.run_rep8(lab.planes[0], *lab.rep8, n_groups=g,
+                          oh=torch.int8, acc=torch.int32, ablation=fn)
+        monkeypatch.setenv({"no-dot": "LAB_NO_DOT",
+                            "no-construct": "LAB_NO_CONSTRUCT"}[fn], "1")
+        jax.clear_caches()
+        try:
+            want = _interpret(jlab.run_rep8, lab.c2g,
+                              *[a.numpy() for a in lab.rep8], n_groups=g,
+                              oh=jnp.int8, acc=jnp.int32, chunk=cl.CHUNK)
+        finally:
+            jax.clear_caches()
+    _same(got, want, lab.c2g, g)
+    assert fn == "empty" or got.sum() > 0
+
+
+def test_diag_constants_equal_the_cuda_source():
+    """diag_kernel's widths, alignment runs and pieces, and its 16-bit
+    bound: what one chunk adds to one cell, times the chunks of a piece,
+    stays below 2^16 in both of its modes."""
+    import re
+
+    with open(os.path.join(REPO, "modkit_tpu_torch", "csrc",
+                           "lab_counts.cu")) as fh:
+        src = fh.read()
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kDiagPiece"] == lc.DIAG_PIECE_CHUNKS
+    assert const["kDiagSmThreads"] == lc.DIAG_SM_THREADS
+    for mode, name in (("onehot-only", "kOnehotOnly"), ("a-only", "kAOnly")):
+        body = src[src.index(f"struct DiagBody<{name}> {{"):]
+        assert re.search(r"kThreads = (\d+);", body).group(1) == str(
+            lc.DIAG_THREADS[mode])
+        align = re.search(r"kAlign = (\w+);", body).group(1)
+        assert const.get(align, align) in (lc.DIAG_ALIGN[mode],
+                                           str(lc.DIAG_ALIGN[mode]))
+        assert lc.DIAG_SM_THREADS % lc.DIAG_THREADS[mode] == 0
+        assert lc.DIAG_ALIGN[mode] <= lc.DIAG_PIECE_CHUNKS
+    assert set(lc.DIAG_CELL_GAIN_PER_CHUNK) == set(lc.DIAG_THREADS)
+    for mode, gain in lc.DIAG_CELL_GAIN_PER_CHUNK.items():
+        assert gain * lc.DIAG_PIECE_CHUNKS < 1 << 16, mode
+    assert lc.DIAG_PIECE_CHUNKS * cl.CHUNK == lc.PIECE_SLOTS
+
+
+@pytest.mark.parametrize("mode", ["onehot-only", "a-only"])
+def test_diag_cell_gain_per_chunk_is_the_most_a_chunk_adds(mode):
+    """One chunk whose every slot lands on one cell adds exactly the
+    gain the CUDA kernel's 16-bit bound assumes."""
+    c2g = torch.zeros(1, dtype=torch.int32)
+    p2 = torch.full((cl.CHUNK,), 13, dtype=torch.uint8)
+    col = torch.full((cl.CHUNK,), 13, dtype=torch.int32)
+    got = lc.run_diag(c2g, p2, col, torch.ones_like(col), n_groups=1,
+                      mode=mode)
+    assert int(got.max()) == lc.DIAG_CELL_GAIN_PER_CHUNK[mode]

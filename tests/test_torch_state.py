@@ -204,3 +204,45 @@ def test_non_cpu_tensor_launches_or_raises():
         state.threshold_state_f32(
             torch.zeros((4, 2), device="meta"), z, tm, tc
         )
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("n", [15, 16, 17, 4111, 33 * LANES])
+def test_quals_t_any_event_count_matches_xla_pallas_and_oracle(n, m):
+    """Event counts around the CUDA quals entry's groups of QUALS_GROUP
+    events (a ragged tail, planes 1.. not 4-byte aligned where N % 4 != 0):
+    the port equals the XLA function and the oracle, and the Pallas kernel
+    where N is a multiple of its 128 lanes."""
+    rng = np.random.default_rng(400 + n + m)
+    quals, present, zero, base, thr_mod, thr_can = random_case(rng, n, m)
+    want = oracle_states(probs_of(quals, present, zero), base, thr_mod, thr_can)
+    got = port_quals_t(quals, present, zero, base, thr_mod, thr_can)
+    xla = np.asarray(
+        threshold_state_from_quals(quals, present, zero, base, thr_mod, thr_can)
+    )
+    assert np.array_equal(xla, want)
+    assert np.array_equal(got, want)
+    if n % LANES == 0:
+        pallas = np.asarray(
+            threshold_state_pallas(
+                np.ascontiguousarray(quals.T), present, zero, base,
+                thr_mod, thr_can, interpret=True,
+            )
+        )
+        assert np.array_equal(pallas, want)
+
+
+def test_quals_constants_equal_the_cuda_source():
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(state.__file__), os.pardir,
+                            "csrc", "state.cu")).read()
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kGroup"] == state.QUALS_GROUP == 4  # one 4-byte load
+    assert const["kQualsThreads"] == state.QUALS_THREADS
+    # the grouped kernel runs for M <= 4, one thread per event above
+    assert "if constexpr (M > 4)" in src
+    assert state.QUALS_GROUPED_CLASSES == tuple(
+        m for m in state.QUALS_CLASSES if m <= 4)
