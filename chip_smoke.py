@@ -18,7 +18,9 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
    {1, 2, 4, 8} and both entries, with times and bounds;
 4. the count kernel (``csrc/counts.cu``) against its plain version,
    exactly, at the tile's shape with P = 100 000 and M in {2, 4, 8}, with
-   ``torch.bincount`` over precomputed keys as the library yardstick;
+   ``torch.bincount`` over precomputed keys as the library yardstick; at
+   M = 2 also with every event at one position and into an output first
+   filled with 0x7f7f7f7f (the kernel writes every cell), each timed;
 5. the main path: ``run_pileup`` on ``cuda`` over the bench workload
    (50 000 reads x 5 kb at 25x over a 10 Mbp contig, seed 1: 100 tiles of
    100 kb), with no filtering and with the default threshold estimate, in
@@ -246,8 +248,53 @@ def phase_counts(tile, dev) -> dict:
         if m == 2:
             entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=lib_ms, n=n, m=m)
+            worst = max(worst, counts_edge_cases(args, tm, tc, ms))
     entry["max_abs_err"] = worst
     return entry
+
+
+def counts_edge_cases(args, tm, tc, ms_tile: float) -> int:
+    """Kernel B at M = 2 with every event at one position (every atomic on
+    a few counters) and into an output first filled with 0x7f7f7f7f, twice
+    in a row, each against its plain version and timed; returns the
+    largest difference."""
+    import torch
+
+    from modkit_tpu_torch.ops import counts
+    from modkit_tpu_torch.tools.true_bench import cuda_time_ms
+
+    p = COUNT_POSITIONS
+    one = [torch.full_like(args[0], p // 3)] + list(args[1:])
+    kern = lambda: counts.modcall_counts(*one, tm, tc, p)
+    want = counts.modcall_counts_plain(*one, tm, tc, p)
+    worst = 0
+    for _ in range(2):
+        got = kern()
+        torch.cuda.synchronize()
+        worst = max(worst, int((got - want).abs().max().item()))
+        require(torch.equal(got, want),
+                "count kernel != plain with every event at one position")
+    ms, _ = cuda_time_ms(kern, 100)
+    n = args[0].numel()
+    log(f"counts one position M=2 N={n}: {n} events on "
+        f"{int((want > 0).sum())} counters, kernel {ms:.5f} ms; == plain")
+    want = counts.modcall_counts_plain(*args, tm, tc, p)
+    log(f"counts bench tile M=2: largest counter {int(want.max())}, "
+        f"{int((want > 0).sum())} counters of {want.numel()} hit")
+    out = torch.full_like(want, 0x7F7F7F7F)
+    fill = lambda: counts.modcall_counts(*args, tm, tc, p, out=out)
+    for _ in range(2):
+        out.fill_(0x7F7F7F7F)
+        got = fill()
+        torch.cuda.synchronize()
+        worst = max(worst, int((got - want).abs().max().item()))
+        require(got is out and torch.equal(got, want),
+                "count kernel left cells of a filled output unwritten")
+    ms, _ = cuda_time_ms(fill, 100)
+    log(f"counts filled output M=2 N={n}: every cell written, kernel "
+        f"{ms:.5f} ms into out= ({ms_tile:.5f} ms into a new tensor); "
+        "== plain")
+    return worst
 
 
 def tile_layers(tile, dev, reader) -> None:
@@ -624,8 +671,8 @@ LAB_ROWS = (
 # reads: onehot-only every slot's p2, col and valid (9 B); matmul-only row 0
 # of them (128 slots); a-only every p2 and row 0's col and valid; no-dot
 # the first 128 slots of the 8 rep8 rows of p2r and colr; no-construct one
-# byte of p2r; empty row 0 of p2 and col (the wrapper's zeroing writes the
-# output).
+# byte of p2r; empty row 0 of p2 and col (its body writes the output's
+# zeros).
 DIAG_ROWS = (
     ("empty", 128 * 5, 0, "tools/kernel_lab.py:160"),
     ("onehot-only", 2048 * 9, 2048 * 6, "tools/kernel_lab.py:160"),

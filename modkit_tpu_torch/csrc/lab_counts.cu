@@ -411,7 +411,7 @@ int launch_hist(const Reader& rd, const int32_t* c2g, int64_t n_chunks,
 // r * kLanes + l); modes 4-5 the rep8 rows (a = p2r, b = colr, kRep rows
 // of `chunk` per chunk). What each adds per chunk of group g:
 enum DiagMode {
-  kEmpty = 0,        // nothing
+  kEmpty = 0,        // nothing (the output's zeros, written here)
   kOnehotOnly = 1,   // +1 at (p2[r, l], l); +1 at (col[r, l], l) if valid
   kMatmulOnly = 2,   // +kCR at (p2[0, l], col[0, l]) if valid[0, l]
   kAOnly = 3,        // +1 at (p2[r, l], col[0, l]) if valid[0, l], r < kCR
@@ -434,10 +434,10 @@ enum DiagMode {
 //     matching slot (the first design: neither shared-block nor 16-byte
 //     direct bodies beat it);
 //   no-construct: one thread per chunk, one global atomic each, its least;
-//   empty: empty_kernel, which loads what the TPU body touches (c2g, and
-//     row 0 of p2 and col of each chunk) and adds nothing; the wrapper's
-//     zeroing writes the output, as the TPU body's zeroing of each group's
-//     block does.
+//   empty: empty_kernel, which writes every cell of the output as zeros
+//     with 16-byte stores, as the TPU body zeroes each group's block, and
+//     loads what the TPU body touches (c2g, and row 0 of p2 and col of each
+//     chunk) behind the stores, in one launch: its wrapper zeroes nothing.
 //
 // diag_kernel. Items: kItems per chunk, each a lane's 16 slots, loaded 16
 // bytes at a time (the wrapper refuses a base pointer that is not 16-byte
@@ -755,25 +755,37 @@ __global__ void no_construct_kernel(const int32_t* __restrict__ c2g,
 // Keeps x computed: an empty asm statement that reads it.
 __device__ __forceinline__ void keep(uint32_t x) { asm volatile("" ::"r"(x)); }
 
-// empty: thread i loads 16 bytes of row 0 of chunk i / kItems of a group
-// in range (items 0-7 p2's 128 bytes, 8-39 col's 512) and adds nothing.
+// empty: writes every cell of the output as zeros and loads what the TPU
+// body touches, c2g and row 0 of p2 and col of each chunk, kept live. One
+// wave, grid-stride: item i stores 16 zero bytes of the output, and where
+// i < n_chunks * kItems also loads 16 bytes of chunk i / kItems's row 0
+// (items 0-7 p2's 128 bytes, 8-39 col's 512, the first item c2g), so the
+// loads are in flight behind the stores.
 __global__ void __launch_bounds__(kThreads)
     empty_kernel(DiagArgs d, const int32_t* __restrict__ c2g,
-                 int64_t n_chunks, int n_groups) {
+                 int64_t n_chunks, int64_t n_quads,
+                 int4* __restrict__ out) {
   constexpr int kP2Items = kLanes / kVec;
   constexpr int kItems = kP2Items + kLanes * 4 / kVec;
   const auto* col = static_cast<const int32_t*>(d.b);
+  const int64_t n_loads = n_chunks * kItems;
+  const int64_t n = n_quads > n_loads ? n_quads : n_loads;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n_chunks * kItems; i += stride) {
-    const int64_t c = i / kItems;
-    const int k = (int)(i % kItems);
-    if ((unsigned)c2g[c] >= (unsigned)n_groups) continue;
-    const int64_t e0 = c * (kCR * kLanes);
-    const uint4 x = k < kP2Items ? load16(d.a + e0 + kVec * k)
-                                 : load16(col + e0 + 4 * (k - kP2Items));
-    keep(x.x ^ x.y ^ x.z ^ x.w);
+  uint32_t acc = 0;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    if (i < n_loads) {
+      const int64_t c = i / kItems;
+      const int k = (int)(i % kItems);
+      const int64_t e0 = c * (kCR * kLanes);
+      const uint4 x = k < kP2Items ? load16(d.a + e0 + kVec * k)
+                                   : load16(col + e0 + 4 * (k - kP2Items));
+      acc ^= x.x ^ x.y ^ x.z ^ x.w;
+      if (k == 0) acc ^= (uint32_t)__ldg(c2g + c);
+    }
+    if (i < n_quads) out[i] = make_int4(0, 0, 0, 0);
   }
+  keep(acc);
 }
 
 }  // namespace
@@ -831,8 +843,10 @@ extern "C" int mk_lab_group(const void* gmeta, const void* packed,
 }
 
 // mode: DiagMode. Modes 0-3 take chunk == 2048 (the plane layout), modes
-// 4-5 any chunk >= 128 that is a multiple of 128. Modes 1-3 read a, b, v
-// 16 bytes at a time: they are 16-byte aligned.
+// 4-5 any chunk >= 128 that is a multiple of 128. Modes 0-3 read a, b, v
+// 16 bytes at a time: they are 16-byte aligned. Mode 0 writes every cell of
+// `out` (16-byte aligned), so it need not be zeroed; modes 1-5 add into
+// `out`, which holds n_groups * 128 * 128 zeroed int32.
 extern "C" int mk_lab_diag(int32_t mode, const void* c2g, const void* a,
                            const void* b, const void* v, int64_t n_chunks,
                            int32_t chunk, int32_t n_groups, void* out,
@@ -848,10 +862,21 @@ extern "C" int mk_lab_diag(int32_t mode, const void* c2g, const void* a,
                    static_cast<const int32_t*>(v)};
   const int64_t per_chunk = n_chunks < 132 * 8 * 4 ? n_chunks : 132 * 8 * 4;
   switch (mode) {
-    case kEmpty:
-      empty_kernel<<<grid_for(n_chunks * (kLanes * 5 / kVec), kThreads),
-                     kThreads, 0, st>>>(d, g, n_chunks, n_groups);
+    case kEmpty: {
+      if (reinterpret_cast<uintptr_t>(out) % 16)
+        return (int)cudaErrorInvalidValue;
+      int sms = 0;
+      const int rc = sm_count(&sms);
+      if (rc != 0) return rc;
+      const int64_t quads = (int64_t)n_groups * kCells / 4;
+      const int64_t loads = n_chunks * (kLanes * 5 / kVec);
+      const int64_t items = quads > loads ? quads : loads;
+      const int64_t wave = (int64_t)sms * (2048 / kThreads);
+      const int64_t need = (items + kThreads - 1) / kThreads;
+      empty_kernel<<<(unsigned int)(need < wave ? need : wave), kThreads, 0,
+                     st>>>(d, g, n_chunks, quads, reinterpret_cast<int4*>(o));
       return (int)cudaGetLastError();
+    }
     case kOnehotOnly:
       return launch_diag<kOnehotOnly>(d, g, n_chunks, n_groups, o, st);
     case kMatmulOnly:

@@ -12,15 +12,21 @@ Output per (position, strand): ``Km = 1 + 4 * (M + 1)`` int32 counters,
     1 + b*(M+1) + 0    n_canonical for base b
     1 + b*(M+1) + 1+j  n_mod for base b, mod code j
 
+An event counts at the flat index ``(rpos * 2 + strand) * Km + counter``
+of the [P, 2, Km] tensor; one outside [0, P * 2 * Km) is dropped.
+
 On this card the count is bound by bytes: each event reads 12 + 4M bytes
 and the [P, 2, Km] tensor is written once. The TPU kernel sorted events by
-position and counted them as one-hot int8 matmuls because the TPU has no
-scatter; Hopper has integer atomics, so the kernel is one thread per event
-that computes the call (the shared ``call.cuh`` function of kernel A) and
-``atomicAdd``s one into its counter. M in {1, 2, 4, 8} is unrolled; any
-other M up to ``state.MAX_CLASSES`` runs a runtime-M kernel. Integer
-atomics make the result exact in any order, so no sort and no host
-planning are needed.
+position on the host and counted them as one-hot int8 matmuls because the
+TPU has no scatter; Hopper has integer atomics, and the events arrive read
+by read, so the kernel is a scatter histogram: each event's call (the
+shared ``call.cuh`` function of kernel A, unrolled for M in {1, 2, 4, 8},
+a loop for any other M up to ``state.MAX_CLASSES``), then one
+``atomicAdd`` into its counter, exact in any order. The kernel writes
+every cell itself: a zero pass stores the output's zeros while the count
+pass, launched behind it as a programmatic dependent launch, loads its
+events and computes their calls, so the wrapper allocates with
+``torch.empty`` and zeroes nothing.
 
 The wrapper runs the plain PyTorch version (the same call, then
 ``torch.bincount``) for tensors on the CPU and launches the kernel for
@@ -73,7 +79,16 @@ def modcall_counts_plain(rpos, strand, base, probs, thr_mod, thr_can,
                          num_positions: int):
     """Plain version of modcall_counts: the call over the f32 rows, then a
     ``torch.bincount`` of the flat counter index."""
-    n, m = probs.shape
+    km = 1 + 4 * (probs.shape[1] + 1)
+    flat = flat_indices(rpos, strand, base, probs, thr_mod, thr_can)
+    counts = torch.bincount(flat, minlength=num_positions * 2 * km)
+    return counts.to(torch.int32).reshape(num_positions, 2, km)
+
+
+def flat_indices(rpos, strand, base, probs, thr_mod, thr_can):
+    """int64 [N] flat counter index of each event: the call, then
+    ``(rpos * 2 + strand) * Km + counter``."""
+    m = probs.shape[1]
     km = 1 + 4 * (m + 1)
     p_cols = [probs[:, j] for j in range(m)]
     state = call_states_plain(
@@ -81,20 +96,36 @@ def modcall_counts_plain(rpos, strand, base, probs, thr_mod, thr_can,
     ).to(torch.int64)
     b = base.to(torch.int64)
     counter = torch.where(state == 0, 0, 1 + b * (m + 1) + (state - 1))
-    flat = (rpos.to(torch.int64) * 2 + strand.to(torch.int64)) * km + counter
-    counts = torch.bincount(flat, minlength=num_positions * 2 * km)
-    return counts.to(torch.int32).reshape(num_positions, 2, km)
+    return (rpos.to(torch.int64) * 2 + strand.to(torch.int64)) * km + counter
+
+
+def _check_out(out, shape, dev):
+    if out is None:
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+    if (out.dtype != torch.int32 or tuple(out.shape) != shape
+            or out.device != dev or not out.is_contiguous()):
+        raise ValueError(
+            f"modcall_counts: out must be a contiguous int32 {shape} tensor "
+            f"on {dev}, got {out.dtype} {tuple(out.shape)} on {out.device}")
+    return out
 
 
 def modcall_counts(rpos, strand, base, probs, thr_mod, thr_can,
-                   num_positions: int):
+                   num_positions: int, out=None):
     """int32 [num_positions, 2, Km] counts of the events ``rpos``/``strand``/
-    ``base`` (int32 [N]) with f32 ``probs`` [N, M] (−1 = absent class)."""
+    ``base`` (int32 [N]) with f32 ``probs`` [N, M] (−1 = absent class).
+    With ``out`` (a contiguous int32 tensor of that shape on the inputs'
+    device) the counts are written there, every cell, and ``out`` is
+    returned."""
+    n, m = probs.shape
+    shape = (num_positions, 2, 1 + 4 * (m + 1))
     if probs.device.type == "cpu":
-        return modcall_counts_plain(
+        got = modcall_counts_plain(
             rpos, strand, base, probs, thr_mod, thr_can, num_positions
         )
-    n, m = probs.shape
+        if out is None:
+            return got
+        return _check_out(out, shape, probs.device).copy_(got)
     dev = validate_cuda_launch(
         "modcall_counts",
         {"rpos": (rpos, torch.int32), "strand": (strand, torch.int32),
@@ -103,14 +134,12 @@ def modcall_counts(rpos, strand, base, probs, thr_mod, thr_can,
     )
     if rpos.shape != (n,) or strand.shape != (n,) or base.shape != (n,):
         raise ValueError("modcall_counts: event arrays must be [N]")
-    km = 1 + 4 * (m + 1)
-    counts = torch.zeros(
-        (num_positions, 2, km), dtype=torch.int32, device=dev
-    )
-    if n == 0 or num_positions == 0:
+    counts = _check_out(out, shape, dev)
+    if num_positions == 0:
         return counts
-    from .kernels import check_launch, kernel_lib
+    from .kernels import check_aligned, check_launch, kernel_lib
 
+    check_aligned("modcall_counts", {"out": counts})
     lib = kernel_lib("counts")
     tm = thr_mod.contiguous()
     tc = thr_can.contiguous()

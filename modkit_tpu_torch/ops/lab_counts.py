@@ -289,12 +289,24 @@ def ablation_plain(c2g, p2r, colr, n_groups: int, chunk: int, ablation: str):
 # ---- wrappers ----
 
 def _launch(what: str, entry: str, *args, n_groups: int, dev,
-            diag: str | None = None) -> torch.Tensor:
-    """Zeroed output, one launch of ``entry`` and its count (and that of
-    diag mode or ablation ``diag``)."""
-    from .kernels import check_launch, kernel_lib
+            diag: str | None = None, out=None) -> torch.Tensor:
+    """The output (``out`` or a new tensor), zeroed unless the body writes
+    every cell itself (``run_diag``'s ``empty``), one launch of ``entry``
+    and its count (and that of diag mode or ablation ``diag``)."""
+    from .kernels import check_aligned, check_launch, kernel_lib
 
-    out = torch.zeros((n_groups, P2, LANES), dtype=torch.int32, device=dev)
+    shape = (n_groups, P2, LANES)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32, device=dev)
+    elif (out.dtype != torch.int32 or tuple(out.shape) != shape
+          or out.device != dev or not out.is_contiguous()):
+        raise ValueError(
+            f"{what}: out must be a contiguous int32 {shape} tensor on {dev}, "
+            f"got {out.dtype} {tuple(out.shape)} on {out.device}")
+    if diag == "empty":
+        check_aligned(what, {"out": out})
+    else:
+        out.zero_()
     lib = kernel_lib("lab_counts")
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(
@@ -343,19 +355,24 @@ def run_bigk(c2g, p2, col, valid, *, n_groups: int, oh, acc):
     return _planes_hist("run_bigk", c2g, p2, col, valid, n_groups)
 
 
-def run_diag(c2g, p2, col, valid, *, n_groups: int, mode: str):
-    """``tools/kernel_lab.py`` ``run_diag``: see ``diag_plain``."""
+def run_diag(c2g, p2, col, valid, *, n_groups: int, mode: str, out=None):
+    """``tools/kernel_lab.py`` ``run_diag``: see ``diag_plain``. With
+    ``out`` (a contiguous int32 [n_groups, 128, 128] tensor on the inputs'
+    device) the result is written there and ``out`` returned; ``empty``'s
+    body writes every cell itself, the other modes' add into ``out``
+    zeroed first."""
     if mode not in DIAG_MODES:
         raise ValueError(
             f"run_diag: mode must be one of {DIAG_MODES}, got {mode!r}")
     dev = _planes("run_diag", c2g, p2, col, valid)
     if dev.type == "cpu":
-        return diag_plain(c2g, p2, col, valid, n_groups, mode)
+        got = diag_plain(c2g, p2, col, valid, n_groups, mode)
+        return got if out is None else out.copy_(got)
     check_aligned("run_diag", {"p2": p2, "col": col, "valid": valid})
     return _launch("run_diag", "mk_lab_diag", _DIAG_MODE[mode],
                    c2g.data_ptr(), p2.data_ptr(), col.data_ptr(),
                    valid.data_ptr(), c2g.numel(), CHUNK, n_groups,
-                   n_groups=n_groups, dev=dev, diag=mode)
+                   n_groups=n_groups, dev=dev, diag=mode, out=out)
 
 
 def run_bigk_host(c2g, p2_rows, col_rows, *, n_groups: int, oh, acc):

@@ -1,7 +1,8 @@
 """modkit_tpu_torch's CUDA kernels against their plain PyTorch versions.
 
 Kernel A (state: the quals entry for M in {1, 2, 4, 8}, the f32 entry for
-any M up to ``MAX_CLASSES``) and kernel B (counts, any M), with a 9-code
+any M up to ``MAX_CLASSES``) and kernel B (counts, any M; every cell
+written, out-of-range events dropped), with a 9-code
 pileup on the card against the host route; and the count-kernel lab's
 kernels (``ops/lab_counts.py``) against their plain versions and the
 oracle.
@@ -150,6 +151,84 @@ def test_count_kernel_equals_plain(cuda_device, m):
     want = counts.modcall_counts_plain(*args, tm, tc, p)
     assert got.dtype == torch.int32 and torch.equal(got, want)
     assert int(got.sum()) == n
+
+
+def _count_case(n, m, p, seed, shape="random"):
+    """Events for kernel B: ``one-position`` puts every event on one
+    position (every atomic on a few counters), ``out-of-range`` puts some at
+    rpos -1 and P (dropped) and some with a strand of 2 or a base of 5 (a
+    flat index of another row, or outside)."""
+    rng = np.random.default_rng(seed)
+    rpos = rng.integers(0, p, n).astype(np.int32)
+    strand = rng.integers(0, 2, n).astype(np.int32)
+    base = rng.integers(0, 4, n).astype(np.int32)
+    if shape == "one-position":
+        rpos[:] = p // 3
+    elif shape == "out-of-range":
+        rpos[::5] = -1
+        rpos[1::7] = p
+        strand[2::11] = 2
+        base[3::13] = 5
+    probs = rng.random((n, m), dtype=np.float32) / np.float32(m)
+    probs[rng.random((n, m)) < 0.3] = -1.0
+    tm, tc = state.thresholds_to_tensors(
+        rng.random((m, 4), dtype=np.float32) * np.float32(0.5),
+        np.full(4, 0.5, dtype=np.float32), m)
+    return [rpos, strand, base, probs], tm, tc
+
+
+def _kept_counts(args, tm, tc, p):
+    """The plain count of the events whose flat index lies in the output
+    (the kernel drops the others)."""
+    m = args[3].shape[1]
+    km = 1 + 4 * (m + 1)
+    flat = counts.flat_indices(*args, tm, tc)
+    keep = (flat >= 0) & (flat < p * 2 * km)
+    want = counts.modcall_counts_plain(*[a[keep] for a in args], tm, tc, p)
+    return want, int(keep.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 8, 9])
+@pytest.mark.parametrize("shape,n", [("random", 200_003), ("one-position",
+                                                            200_003),
+                                     ("out-of-range", 50_001), ("empty", 0),
+                                     ("one", 1)])
+def test_count_kernel_writes_every_cell(cuda_device, m, shape, n):
+    """Kernel B into an output first filled with 0x7f7f7f7f, twice in a row
+    (a cell left over from the first call would show in the second), with
+    P * 2 * Km not a multiple of 4, so the zero pass stores a tail."""
+    p = 30_011
+    host, tm, tc = _count_case(n, m, p, seed=n + m, shape=shape)
+    args = [torch.from_numpy(a).to(cuda_device) for a in host]
+    want, kept = _kept_counts(args, tm, tc, p)
+    km = 1 + 4 * (m + 1)
+    for _ in range(2):
+        out = torch.full((p, 2, km), 0x7F7F7F7F, dtype=torch.int32,
+                         device=cuda_device)
+        before = counts.COUNT_KERNEL_LAUNCHES
+        got = counts.modcall_counts(*args, tm, tc, p, out=out)
+        assert counts.COUNT_KERNEL_LAUNCHES == before + 1
+        assert got is out and torch.equal(got, want)
+        assert int(got.sum()) == kept
+        assert torch.equal(counts.modcall_counts(*args, tm, tc, p), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 9])
+def test_count_kernel_reads_inputs_written_just_before(cuda_device, m):
+    """The count pass loads its events before it waits for the zero pass:
+    inputs written by the kernels just before it on the stream, with no
+    synchronisation between, must be the ones it counts."""
+    p = 20_011
+    host, tm, tc = _count_case(300_001, m, p, seed=m)
+    src = [torch.from_numpy(a).to(cuda_device) for a in host]
+    for shift in range(1, 6):
+        # new inputs each round, made on the stream right before the call
+        args = [(src[0] + shift * 997) % p, src[1].flip(0).contiguous(),
+                src[2].roll(shift).contiguous(), src[3].roll(shift, 0)]
+        got = counts.modcall_counts(*args, tm, tc, p)
+        assert torch.equal(got, counts.modcall_counts_plain(*args, tm, tc, p))
 
 
 # ---- kernels A (f32 entry) and B for any M up to MAX_CLASSES ----
@@ -571,6 +650,40 @@ def _diag_call(name, c2g, planes=None, rows=None, g=1, chunk=2048):
         return lab_counts.run_diag(c2g, *planes, n_groups=g, mode=name)
     return lab_counts.run_rep8(c2g, *rows, n_groups=g, oh=torch.int8,
                                acc=torch.int32, chunk=chunk, ablation=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["lab", "unvisited"])
+def test_lab_empty_writes_every_cell(cuda_device, plan):
+    """run_diag's empty body writes every cell of an output first filled
+    with 0x7f7f7f7f, at the lab's shape and on a plan whose chunks visit
+    only some groups (and one chunk of no group)."""
+    from modkit_tpu_torch.ops import lab_counts
+    from modkit_tpu_torch.tools import kernel_lab
+
+    if plan == "lab":
+        lab = kernel_lab.LabInputs.build(
+            kernel_lab.lab_events(LAB_EVENTS, LAB_POSITIONS), LAB_POSITIONS,
+            cuda_device)
+        c2g, planes, g = lab.planes[0], lab.planes[1:], lab.n_groups
+    else:
+        g = 37
+        c2g = torch.tensor([3, 3, 9, 20, 99], dtype=torch.int32,
+                           device=cuda_device)
+        slots = c2g.numel() * 2048
+        planes = [torch.full((slots,), 5, dtype=torch.uint8,
+                             device=cuda_device),
+                  torch.full((slots,), 5, dtype=torch.int32,
+                             device=cuda_device),
+                  torch.ones(slots, dtype=torch.int32, device=cuda_device)]
+    out = torch.full((g, 128, 128), 0x7F7F7F7F, dtype=torch.int32,
+                     device=cuda_device)
+    before = lab_counts.DIAG_LAUNCHES["empty"]
+    got = lab_counts.run_diag(c2g, *planes, n_groups=g, mode="empty",
+                              out=out)
+    assert lab_counts.DIAG_LAUNCHES["empty"] == before + 1
+    assert got is out
+    assert torch.equal(got, lab_counts.diag_plain(c2g, *planes, g, "empty"))
 
 
 @pytest.mark.cuda
