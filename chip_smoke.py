@@ -48,7 +48,19 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
    then the lab's events all at one position (one cell takes whole
    chunks) for ``run_variant``, ``run_rep8`` and ``run_group`` (kernel ==
    plain == oracle) and ``run_diag``'s ``a-only`` and ``onehot-only``
-   (kernel == plain).
+   (kernel == plain);
+10. CRAM input: a 10 000-read modBAM of the bench workload's shape (5 kb
+    reads at 25x over a 2 Mbp contig, seed 1: 20 tiles, M = 2) written as
+    a CRAM (``utils/synth_cram.py``), its pileup on ``cuda`` (the Python
+    event route, kernel B on every tile), with ``use_device=False`` and
+    through the native route of the source BAM, with no filtering and
+    with the default threshold estimate: every bedMethyl of a mode
+    byte-equal, kernel B launched once per tile with events, kernel A
+    never on the CRAM;
+11. ``run_pileup_counts`` (the full K = 6 + 4(M+1) count of modcall,
+    nocall and delete events, a torch op) on ``cuda`` against the CPU,
+    exactly, at P = 100 000, M = 2, on the bench tile's events with
+    out-of-range ones among them.
 
 Before phase 3 it prints the card's measured peaks (``tools/true_bench.py``:
 HBM read and copy rates, bf16 ``torch.matmul`` rate) beside the data-sheet
@@ -79,6 +91,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 BENCH_READS, BENCH_READ_LEN, BENCH_COVERAGE = 50_000, 5_000, 25.0
+# the CRAM phase's depth: the CRAM route is serial, so the bench's reads
+# are cut to a fifth (a 2 Mbp contig at the same coverage)
+CRAM_READS = 10_000
 TILE = 100_000
 COUNT_POSITIONS = 100_000
 
@@ -525,6 +540,101 @@ def phase_count_path(work: str) -> int:
     return n_launch
 
 
+def phase_cram(work: str) -> int:
+    """Pileup over a CRAM on the card (the Python event route: kernel B on
+    every tile), with ``use_device=False`` and through the native route of
+    the BAM it was written from; returns kernel B's launches in the
+    no-filtering cuda run."""
+    from modkit_tpu_torch.io.cram import CramReader
+    from modkit_tpu_torch.utils.synth import make_synthetic_modbam
+    from modkit_tpu_torch.utils.synth_cram import write_cram
+
+    t_phase = time.perf_counter()
+    bam, fa, cram = (os.path.join(work, f"cram_src.{x}")
+                     for x in ("bam", "fa", "cram"))
+    make_synthetic_modbam(bam, n_reads=CRAM_READS, read_len=BENCH_READ_LEN,
+                          coverage=BENCH_COVERAGE, seed=1, fasta_out=fa)
+    t0 = time.perf_counter()
+    info = write_cram(bam, fa, cram)
+    t1 = time.perf_counter()
+    n_decoded = len(CramReader(cram, fa)._decode_all())
+    t2 = time.perf_counter()
+    require(n_decoded == info["n_records"], "cram: records lost in decode")
+    log(f"cram: {info['n_records']} records in {info['n_containers']} "
+        f"containers, {os.path.getsize(cram)} B (BAM {os.path.getsize(bam)} "
+        f"B), written in {t1 - t0:.1f} s; decoding every container "
+        f"(native) to records takes {t2 - t1:.2f} s")
+    routes = (("cram cuda", cram, dict(device="cuda")),
+              ("cram host", cram, dict(device="cuda", use_device=False)),
+              ("bam native cuda", bam, dict(device="cuda")))
+    launches = None
+    for mode, kw in (("no_filtering", dict(no_filtering=True)),
+                     ("estimate", dict())):
+        first, rates = None, []
+        for route, src, extra in routes:
+            out = os.path.join(work, f"cram.{mode}.{route.replace(' ', '_')}"
+                               ".bed")
+            reset_launches()
+            t, stats = run_path(src, out, reference_fasta=fa, **kw, **extra)
+            n_state, n_f32, n_count = read_launches()
+            rates.append(f"{route} {CRAM_READS / t:.1f}")
+            if first is None:
+                first = out
+                n_tiles = tiles_with_rows(out)
+                require(stats["rows"] > 0, f"cram {mode}: no rows")
+            else:
+                require(filecmp.cmp(first, out, shallow=False),
+                        f"cram {mode}: {route} wrote other bytes than "
+                        "the cram cuda run")
+            if route == "cram cuda":
+                require(n_state == 0 and n_f32 == 0,
+                        f"cram {mode}: a state kernel ran on the CRAM")
+                require(n_count == n_tiles,
+                        f"cram {mode}: {n_count} count launches for "
+                        f"{n_tiles} tiles with events")
+                if launches is None:
+                    launches = n_count
+            elif route == "cram host":
+                require((n_state, n_f32, n_count) == (0, 0, 0),
+                        f"cram {mode}: the host route launched")
+        log(f"cram {mode}: {CRAM_READS} reads, {n_tiles} tiles, kernel B "
+            f"launched {n_tiles} times on cuda, all three routes "
+            f"byte-equal; reads/s: " + ", ".join(rates))
+    log(f"cram phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_pileup_counts(tile, dev) -> None:
+    """``run_pileup_counts`` on the card against the CPU, exactly, on the
+    bench tile's events at P = 100 000, M = 2, with random event types and
+    some events at rpos -1 and P."""
+    import numpy as np
+
+    from modkit_tpu_torch.ops import counts
+
+    rng = np.random.default_rng(17)
+    rpos, strand, base, probs = tile.export_events()
+    n, m = len(rpos), probs.shape[1]
+    rpos = np.ascontiguousarray(rpos % COUNT_POSITIONS, dtype=np.int32)
+    rpos[::101] = -1
+    rpos[1::103] = COUNT_POSITIONS
+    ev_type = rng.integers(0, 3, n).astype(np.int32)
+    thr_mod = rng.random((m, 4), dtype=np.float32) * np.float32(0.5)
+    thr_can = rng.random(4, dtype=np.float32) * np.float32(0.8)
+    args = (rpos, strand, base, ev_type, probs, thr_mod, thr_can,
+            COUNT_POSITIONS)
+    t0 = time.perf_counter()
+    got = counts.run_pileup_counts(*args, device=dev)
+    t1 = time.perf_counter()
+    want = counts.run_pileup_counts(*args, device="cpu")
+    t2 = time.perf_counter()
+    require(np.array_equal(got, want), "run_pileup_counts: cuda != cpu")
+    log(f"run_pileup_counts M={m} N={n} P={COUNT_POSITIONS}: cuda == cpu "
+        f"({int(got.sum())} events counted, shape {got.shape}); host clock "
+        f"cuda {(t1 - t0) * 1e3:.1f} ms with copies, cpu "
+        f"{(t2 - t1) * 1e3:.1f} ms")
+
+
 def phase_peaks() -> None:
     """The card's measured peaks, beside the data-sheet rate of the bounds."""
     from modkit_tpu_torch.tools import true_bench
@@ -945,6 +1055,8 @@ def main() -> int:
         phase_profile(bam, work)
         many = phase_many_codes(tile, dev, work)
         lab_rows = phase_lab()
+        cram_launches = phase_cram(work)
+        phase_pileup_counts(tile, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -958,7 +1070,8 @@ def main() -> int:
         dict(name="modcall_counts", route="cuda",
              source="modkit_tpu_torch/csrc/counts.cu",
              replaces="modkit_tpu/ops/pallas_counts.py:210",
-             launches=count_launches, max_abs_err=ct["max_abs_err"],
+             launches=count_launches + cram_launches,
+             max_abs_err=ct["max_abs_err"],
              ms=ct["ms"], plain_ms=ct["plain_ms"], bound_ms=ct["bound_ms"],
              bound_by=ct["bound_by"], library_ms=ct["library_ms"]),
         dict(name="threshold_state_f32_any_m", route="cuda",

@@ -1,7 +1,11 @@
-"""Command-line interface of the port: ``python -m modkit_tpu_torch pileup``.
+"""Command-line interface of the port: ``python -m modkit_tpu_torch <cmd>``.
 
-The ``pileup`` subcommand of modkit_tpu's CLI (cli.py), with ``--device``
-choosing the run's device (``cuda`` by default). The other subcommands of
+The subcommands of modkit_tpu's CLI (cli.py) that the port has, with
+modkit_tpu's flags: ``pileup`` (BAM or CRAM; ``--device`` chooses the
+run's device, ``cuda`` by default), ``summary``, ``sample-probs``,
+``adjust-mods``, ``call-mods``, ``update-tags``, ``repair`` and ``modbam
+check-tags``/``sample-reads``. Only ``pileup`` works on the device; the
+others run on the host, as in modkit_tpu. The other subcommands of
 modkit_tpu arrive in later slices of the port.
 """
 
@@ -83,7 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="modkit-tpu-torch",
         description="PyTorch/CUDA port of modkit_tpu: modBAM -> bedMethyl "
-        "pileup on an NVIDIA GPU",
+        "pileup on an NVIDIA GPU, and the modBAM tools",
     )
     from . import __version__
 
@@ -129,6 +133,141 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device of the run (default: cuda)")
     p.set_defaults(func=cmd_pileup)
+
+    # ---- summary ----
+    p = sub.add_parser("summary", help="summarize mod calls in a modBAM")
+    p.add_argument("in_bam")
+    p.add_argument("--region", default=None)
+    p.add_argument("--ignore", default=None)
+    p.add_argument("--tsv", dest="tsv_format", action="store_true")
+    p.add_argument("--table", dest="table_format", action="store_true")
+    p.add_argument("--only-mapped", action="store_true")
+    p.add_argument("--edge-filter", default=None)
+    p.add_argument("--invert-edge-filter", action="store_true")
+    p.add_argument("--include-bed", default=None)
+    _add_common_sampling(p)
+    _add_threshold_args(p)
+    _add_logging(p)
+    p.set_defaults(func=cmd_summary)
+
+    # ---- sample-probs ----
+    p = sub.add_parser(
+        "sample-probs", help="percentiles of base-mod call probabilities"
+    )
+    p.add_argument("in_bam")
+    p.add_argument("--region", default=None)
+    p.add_argument("--percentiles", default="0.1,0.5,0.9")
+    p.add_argument("-o", "--out-dir", default=None)
+    p.add_argument("--prefix", default=None)
+    p.add_argument("--force", action="store_true")
+    p.add_argument("--hist", "--histogram", dest="histogram", action="store_true")
+    p.add_argument("--dna-color", nargs=2, action="append", default=None,
+                   help="BASE #RRGGBB histogram color override")
+    p.add_argument("--mod-color", nargs=2, action="append", default=None,
+                   help="CODE #RRGGBB histogram color override")
+    p.add_argument("--ignore", default=None)
+    p.add_argument("--edge-filter", default=None)
+    p.add_argument("--invert-edge-filter", action="store_true")
+    p.add_argument("--only-mapped", action="store_true")
+    p.add_argument("--include-bed", default=None)
+    _add_common_sampling(p)
+    _add_logging(p)
+    p.set_defaults(func=cmd_sample_probs)
+
+    # ---- adjust-mods ----
+    p = sub.add_parser(
+        "adjust-mods", help="rewrite modBAM, collapsing/converting mod calls"
+    )
+    p.add_argument("in_bam")
+    p.add_argument("out_bam")
+    p.add_argument("--ignore", default=None)
+    p.add_argument("--method", choices=["norm", "dist"], default="dist")
+    p.add_argument("--convert", nargs=2, action="append", default=None)
+    p.add_argument("--edge-filter", default=None)
+    p.add_argument("--invert-edge-filter", action="store_true")
+    p.add_argument("--motif", nargs=2, action="append", default=None)
+    p.add_argument("--cpg", action="store_true")
+    p.add_argument("--discard-motifs", action="store_true")
+    p.add_argument("--ff", "--fail-fast", dest="fail_fast", action="store_true")
+    p.add_argument("--filter-probs", action="store_true")
+    p.add_argument("--sample-region", default=None)
+    p.add_argument("--output-sam", action="store_true")
+    _add_common_sampling(p)
+    _add_threshold_args(p)
+    _add_logging(p)
+    p.set_defaults(func=cmd_adjust_mods, call_mode=False)
+
+    # ---- call-mods ----
+    p = sub.add_parser(
+        "call-mods", help="rewrite modBAM with thresholded (hard) calls"
+    )
+    p.add_argument("in_bam")
+    p.add_argument("out_bam")
+    p.add_argument("--mod-threshold", dest="mod_thresholds", action="append", default=None)
+    p.add_argument("--edge-filter", default=None)
+    p.add_argument("--invert-edge-filter", action="store_true")
+    p.add_argument("--include-unmapped", action="store_true")
+    p.add_argument("--ff", "--fail-fast", dest="fail_fast", action="store_true")
+    p.add_argument("--output-sam", action="store_true")
+    p.add_argument("-p", "--filter-percentile", type=float, default=0.1)
+    p.add_argument("--filter-threshold", action="append", default=None)
+    p.add_argument("--no-filtering", action="store_true")
+    p.add_argument("--sample-region", default=None)
+    _add_common_sampling(p)
+    _add_logging(p)
+    p.set_defaults(func=cmd_call_mods)
+
+    # ---- update-tags ----
+    p = sub.add_parser("update-tags", help="update MM/ML tag styles and modes")
+    p.add_argument("in_bam")
+    p.add_argument("out_bam")
+    p.add_argument("--mode", choices=["explicit", "implicit", "ambiguous"], default=None)
+    p.add_argument("--no-implicit-probs", action="store_true")
+    p.add_argument("--output-sam", action="store_true")
+    _add_logging(p)
+    p.set_defaults(func=cmd_update_tags)
+
+    # ---- repair (repair_tags.rs:23-44) ----
+    p = sub.add_parser(
+        "repair", help="project mod tags from donor onto trimmed reads"
+    )
+    p.add_argument("-d", "--donor-bam", "--donor", required=True,
+                   dest="donor")
+    p.add_argument("-a", "--acceptor-bam", "--acceptor", required=True,
+                   dest="acceptor")
+    p.add_argument("-o", "--output-bam", "--output", required=True,
+                   dest="output")
+    p.add_argument("--log-filepath", default=None)
+    p.add_argument("-t", "--threads", type=int, default=4)
+    p.set_defaults(func=cmd_repair, command_name="repair")
+
+    # ---- modbam check-tags (modbam_util/subcommands.rs:44-115) ----
+    p = sub.add_parser(
+        "modbam", aliases=["mb"], help="modBAM utilities"
+    )
+    msub = p.add_subparsers(dest="modbam_mode", required=True)
+    q = msub.add_parser("check-tags", help="audit MM/ML tag validity")
+    q.add_argument("in_bam")
+    q.add_argument("--permissive", action="store_true")
+    q.add_argument("-o", "--out-dir", default=None)
+    q.add_argument("-f", "--force", action="store_true")
+    q.add_argument("--prefix", default=None)
+    q.add_argument("-t", "--threads", type=int, default=4)
+    q.add_argument("--ignore-index", action="store_true")
+    q.add_argument("-i", "--interval-size", type=int, default=5_000_000)
+    q.add_argument("--log-filepath", "--log", default=None)
+    q.add_argument("--suppress-progress", action="store_true")
+    q.add_argument("-n", "--num-reads", type=int, default=None)
+    q.add_argument("--check-secondary", action="store_true",
+                   dest="allow_non_primary")
+    q.add_argument("--only-mapped", action="store_true")
+    q.add_argument("--region", default=None)
+    q.set_defaults(func=cmd_modbam_check_tags, command_name="modbam check-tags")
+    q = msub.add_parser("sample-reads")
+    q.add_argument("in_bam")
+    q.set_defaults(
+        func=cmd_modbam_sample_reads, command_name="modbam sample-reads"
+    )
 
     return ap
 
@@ -193,6 +332,313 @@ def cmd_pileup(args) -> int:
         t = ErrorTally(stats["errors"])
         print(t.format_table(), file=sys.stderr)
     return 0
+
+
+def cmd_adjust_mods(args) -> int:
+    from .caller import ThresholdCaller
+    from .collapse import CollapseMethod
+    from .engines.adjust import adjust_modbam
+    from .modcodes import parse_mod_code
+    from .motifs import parse_motifs
+
+    methods = []
+    if args.convert:
+        for frm, to in args.convert:
+            methods.append(
+                CollapseMethod(
+                    "convert", (parse_mod_code(frm),), parse_mod_code(to)
+                )
+            )
+    elif args.ignore:
+        # --method selects the collapse math for --ignore: "dist"
+        # (ReDistribute, the reference's only behavior) or "norm"
+        # (ReNormalize, mod_bam.rs:306-323)
+        methods.append(
+            CollapseMethod(args.method, (parse_mod_code(args.ignore),))
+        )
+    edge_filter = (
+        parse_edge_filter(args.edge_filter, args.invert_edge_filter)
+        if args.edge_filter
+        else None
+    )
+    motifs = None
+    if args.motif or args.cpg:
+        motifs = parse_motifs(
+            [x for pair in (args.motif or []) for x in pair], args.cpg
+        )
+    caller = None
+    if args.filter_probs:
+        ft = parse_filter_thresholds(args.filter_threshold)
+        if args.no_filtering:
+            caller = ThresholdCaller.passthrough()
+        elif ft is not None:
+            default = ft.pop("default", 0.0)
+            caller = ThresholdCaller(ft, parse_mod_thresholds(getattr(args, "mod_thresholds", None)) or {}, default)
+        elif args.in_bam in ("-", "stdin"):
+            raise SystemExit(
+                "must specify all thresholds with --filter-threshold "
+                "when using stdin stream"
+            )
+        else:
+            from .io.cram import open_alignment_reader
+            from .thresholds import estimate_thresholds
+
+            per_base = estimate_thresholds(
+                open_alignment_reader(args.in_bam),
+                num_reads=args.num_reads,
+                sample_frac=args.sampling_frac, seed=args.seed,
+                filter_percentile=args.filter_percentile,
+                collapse=methods, edge_filter=edge_filter,
+                region=args.sample_region,
+            )
+            caller = ThresholdCaller(per_base, {}, 0.0)
+    stats = adjust_modbam(
+        args.in_bam, args.out_bam, methods, caller, edge_filter,
+        filter_only=True if args.filter_probs else False,
+        motifs=motifs, discard_motifs=args.discard_motifs,
+        fail_fast=args.fail_fast, output_sam=args.output_sam,
+    )
+    _print_errors(stats)
+    return 0
+
+
+def cmd_call_mods(args) -> int:
+    from .caller import ThresholdCaller
+    from .engines.adjust import adjust_modbam
+    from .io.bam import BamReader
+
+    ft = parse_filter_thresholds(args.filter_threshold)
+    per_mod = parse_mod_thresholds(args.mod_thresholds) or {}
+    if args.no_filtering:
+        caller = ThresholdCaller.passthrough()
+    elif ft is not None:
+        default = ft.pop("default", 0.0)
+        caller = ThresholdCaller(ft, per_mod, default)
+    else:
+        if args.in_bam in ("-", "stdin"):
+            # sampling would consume the stream before the rewrite pass
+            # (reference commands.rs:1589-1593)
+            raise SystemExit(
+                "must specify all thresholds with --filter-threshold and "
+                "(optionally) --mod-threshold when using stdin stream"
+            )
+        from .io.cram import open_alignment_reader
+        from .thresholds import estimate_thresholds
+
+        per_base = estimate_thresholds(
+            open_alignment_reader(args.in_bam),
+            num_reads=args.num_reads,
+            sample_frac=args.sampling_frac, seed=args.seed,
+            include_unmapped=args.include_unmapped,
+            filter_percentile=args.filter_percentile,
+            region=args.sample_region,
+        )
+        caller = ThresholdCaller(per_base, per_mod, 0.0)
+    edge_filter = (
+        parse_edge_filter(args.edge_filter, args.invert_edge_filter)
+        if args.edge_filter
+        else None
+    )
+    stats = adjust_modbam(
+        args.in_bam, args.out_bam, (), caller, edge_filter,
+        filter_only=False, fail_fast=args.fail_fast,
+        output_sam=args.output_sam,
+    )
+    _print_errors(stats)
+    return 0
+
+
+def cmd_update_tags(args) -> int:
+    from .engines.adjust import adjust_modbam
+    from .modtags import EXPLICIT, IMPLICIT
+
+    # "ambiguous" is the clap alias of explicit '?' (commands.rs:1184-1188)
+    if args.mode in ("explicit", "ambiguous"):
+        new_mode = EXPLICIT
+    elif args.mode == "implicit":
+        new_mode = IMPLICIT
+    elif args.no_implicit_probs:
+        new_mode = EXPLICIT
+    else:
+        new_mode = IMPLICIT
+    if args.no_implicit_probs and new_mode != EXPLICIT:
+        raise SystemExit(
+            "cannot change to implicit mode and skip implicit probs"
+        )
+    stats = adjust_modbam(
+        args.in_bam, args.out_bam, new_mode=new_mode,
+        drop_implicit=args.no_implicit_probs, force_mm_style="MM",
+        output_sam=args.output_sam,
+    )
+    _print_errors(stats)
+    return 0
+
+
+
+def _print_errors(stats: dict) -> None:
+    if stats.get("errors"):
+        from .errors import ErrorTally
+
+        print(ErrorTally(stats["errors"]).format_table(), file=sys.stderr)
+
+
+def _sample_common(args):
+    from .collapse import CollapseMethod
+    from .io.cram import open_alignment_reader
+    from .modcodes import parse_mod_code
+    from .position_filter import StrandedPositionFilter
+    from .thresholds import sample_reads
+
+    reader = open_alignment_reader(
+        args.in_bam, getattr(args, "reference_fasta", None)
+    )
+    collapse = []
+    if args.ignore:
+        collapse.append(CollapseMethod("dist", (parse_mod_code(args.ignore),)))
+    edge_filter = (
+        parse_edge_filter(args.edge_filter, args.invert_edge_filter)
+        if args.edge_filter
+        else None
+    )
+    position_filter = None
+    if getattr(args, "include_bed", None):
+        position_filter = StrandedPositionFilter.from_bed_file(
+            args.include_bed, dict(reader.header.name_to_tid)
+        )
+    num_reads = None if args.no_sampling else args.num_reads
+    sample_frac = None if args.no_sampling else args.sampling_frac
+    if sample_frac is not None:
+        num_reads = None
+    only_mapped = args.only_mapped or position_filter is not None
+    sampled = sample_reads(
+        reader,
+        num_reads=num_reads,
+        sample_frac=sample_frac,
+        seed=args.seed,
+        include_unmapped=not only_mapped,
+        region=args.region,
+        collapse=collapse,
+        edge_filter=edge_filter,
+        position_filter=position_filter,
+        only_mapped=only_mapped,
+    )
+    return reader, sampled, collapse
+
+
+def cmd_summary(args) -> int:
+    from .caller import ThresholdCaller
+    from .summary import (
+        render_summary_table, render_summary_tsv, summarize_sampled,
+    )
+    from .thresholds import thresholds_from_sampled
+
+    args.only_mapped = getattr(args, "only_mapped", False)
+    reader, sampled, _ = _sample_common(args)
+    ft = parse_filter_thresholds(args.filter_threshold)
+    per_mod = parse_mod_thresholds(args.mod_thresholds) or {}
+    if args.no_filtering:
+        caller = ThresholdCaller.passthrough()
+    elif ft is not None:
+        default = ft.pop("default", 0.0)
+        caller = ThresholdCaller(ft, per_mod, default)
+    else:
+        per_base = thresholds_from_sampled(sampled, args.filter_percentile)
+        caller = ThresholdCaller(per_base, per_mod, 0.0)
+    s = summarize_sampled(sampled, caller, args.region)
+    # --table is the default rendering; it exists to be explicit and to
+    # conflict-check against --tsv (commands.rs ModSummarize args)
+    if args.tsv_format and args.table_format:
+        raise SystemExit("--tsv and --table are mutually exclusive")
+    if args.tsv_format:
+        sys.stdout.write(render_summary_tsv(s))
+    else:
+        sys.stdout.write(render_summary_table(s))
+    return 0
+
+
+def cmd_sample_probs(args) -> int:
+    import os
+
+    from .summary import render_percentiles_table, sample_probs_percentiles
+
+    args.only_mapped = getattr(args, "only_mapped", False)
+    reader, sampled, _ = _sample_common(args)
+    qs = [float(x) for x in args.percentiles.split(",")]
+    per_base = sample_probs_percentiles(sampled, qs)
+    if args.out_dir:
+        os.makedirs(args.out_dir, exist_ok=True)
+        prefix = f"{args.prefix}_" if args.prefix else ""
+        targets = [f"{prefix}thresholds.tsv"]
+        if args.histogram:
+            targets += [
+                f"{prefix}probabilities.tsv",
+                f"{prefix}counts.html",
+                f"{prefix}proportion.html",
+            ]
+        paths = [os.path.join(args.out_dir, t) for t in targets]
+        for fp in paths:
+            if os.path.exists(fp) and not args.force:
+                raise SystemExit(f"refusing to overwrite {fp}")
+        with open(paths[0], "w") as fh:
+            fh.write(render_percentiles_table(per_base))
+        if args.histogram:
+            from .charts import bar_chart_html
+            from .summary import (
+                histogram_chart_data, prob_histograms,
+                render_probabilities_tsv,
+            )
+
+            hists = prob_histograms(sampled)
+            with open(paths[1], "w") as fh:
+                fh.write(render_probabilities_tsv(hists))
+            cats, counts_s, prop_s = histogram_chart_data(hists)
+            # keys are the rendered label parts (chart labels format the
+            # code as text, so ChEBI codes match by their digit string)
+            overrides = {
+                "dna": dict(args.dna_color or []),
+                "mod": {c: col for c, col in (args.mod_color or [])},
+            }
+            with open(paths[2], "w") as fh:
+                fh.write(
+                    bar_chart_html(
+                        "Counts", cats, counts_s, "counts", overrides
+                    )
+                )
+            with open(paths[3], "w") as fh:
+                fh.write(
+                    bar_chart_html(
+                        "Proportion", cats, prop_s, "proportion", overrides
+                    )
+                )
+    else:
+        if args.histogram:
+            from .logging import get_logger
+
+            get_logger().warning(
+                "--hist requires an output directory (-o); only writing "
+                "the thresholds table"
+            )
+        sys.stdout.write(render_percentiles_table(per_base))
+    return 0
+
+
+def cmd_modbam_check_tags(args) -> int:
+    from .engines.modbam_util import run_check_tags
+
+    return run_check_tags(args)
+
+
+def cmd_modbam_sample_reads(args) -> int:
+    from .engines.modbam_util import run_sample_reads
+
+    return run_sample_reads(args)
+
+
+
+def cmd_repair(args) -> int:
+    from .engines.repair import run_repair
+
+    return run_repair(args)
 
 
 def main(argv=None) -> int:

@@ -1,9 +1,11 @@
 """ctypes bindings to the native C++ runtime (native/modkit_native.cpp).
 
 The port's own trimmed copy of ``modkit_tpu.native``: it holds only what the
-pileup and threshold sampling use — BAM record parse + MM/ML/MN decode +
-per-tile pileup event extraction, the host threshold/histogram passes,
-native row formatting, and BGZF compression — in multithreaded C++.
+pileup, threshold sampling and the modBAM rewriters use — BAM record parse
++ MM/ML/MN decode + per-tile pileup event extraction, the host
+threshold/histogram passes, native row formatting, BGZF compression, CRAM
+container decode (``cram_decode_container``) and the adjust/call-mods/
+update-tags span engine (``adjust_stream``) — in multithreaded C++.
 
 The shared library builds on first use with ``g++`` from the repository's
 ``native/modkit_native.cpp`` into ``modkit_tpu_torch/_build/``, under a file
@@ -44,6 +46,12 @@ _lock = threading.Lock()
 _lib = None
 _load_failed = False
 
+# multi-ref CRAM container ref resolver: const char* (*)(int32 tid,
+# int64* len); returns NULL on failure (native falls back to Python)
+_REF_CB = ctypes.CFUNCTYPE(
+    ctypes.c_void_p, ctypes.c_int32, ctypes.POINTER(ctypes.c_int64)
+)
+
 
 class _MkTileOut(ctypes.Structure):
     _fields_ = [
@@ -81,6 +89,19 @@ class _MkGroupsOut(ctypes.Structure):
         ("total_codes", ctypes.c_int64),
         ("total_probs", ctypes.c_int64),
         ("handle", ctypes.c_void_p),
+    ]
+
+
+class _MkAdjustOut(ctypes.Structure):
+    _fields_ = [
+        ("blob", ctypes.c_void_p),
+        ("blob_len", ctypes.c_int64),
+        ("carry", ctypes.c_void_p),
+        ("carry_len", ctypes.c_int64),
+        ("next_off", ctypes.c_int64),
+        ("n_written", ctypes.c_int32),
+        ("eof", ctypes.c_int32),
+        ("err_counts", ctypes.c_int64 * 16),
     ]
 
 
@@ -259,6 +280,46 @@ def load():
             ]
             lib.mk_free_groups.restype = None
             lib.mk_free_groups.argtypes = [ctypes.POINTER(_MkGroupsOut)]
+            lib.mk_adjust_span.restype = ctypes.c_int32
+            lib.mk_adjust_span.argtypes = [
+                ctypes.POINTER(ctypes.c_char),
+                ctypes.c_int64,                    # raw, raw_len
+                ctypes.c_int64, ctypes.c_int64,    # start_off, max_comp
+                ctypes.c_char_p, ctypes.c_int64,   # carry, carry_len
+                ctypes.c_int32,                    # parse_header
+                ctypes.c_int32, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int32,                    # edge args
+                ctypes.POINTER(ctypes.c_int64), ctypes.c_int32,  # collapse
+                ctypes.c_int32,                    # caller_mode
+                ctypes.POINTER(ctypes.c_int64),    # pm_codes
+                ctypes.POINTER(ctypes.c_float),    # pm_vals
+                ctypes.c_int32,                    # n_pm
+                ctypes.POINTER(ctypes.c_float),    # fallback_mod4
+                ctypes.POINTER(ctypes.c_float),    # can_thr4
+                ctypes.POINTER(ctypes.c_int64),    # motif blob
+                ctypes.c_int32,                    # motif blob len
+                ctypes.c_int32,                    # discard_motifs
+                ctypes.c_int32,                    # new_mode
+                ctypes.c_int32,                    # drop_implicit
+                ctypes.c_int32,                    # force_mm_upper
+                ctypes.c_int32,                    # compress_level
+                ctypes.c_int32,                    # n_threads
+                ctypes.POINTER(_MkAdjustOut),
+            ]
+            lib.mk_free_adjust.restype = None
+            lib.mk_free_adjust.argtypes = [ctypes.POINTER(_MkAdjustOut)]
+            lib.mk_cram_decode_container.restype = ctypes.c_int32
+            lib.mk_cram_decode_container.argtypes = [
+                ctypes.POINTER(ctypes.c_char),
+                ctypes.c_int64,                    # data, data_len
+                ctypes.c_int64,                    # container offset
+                ctypes.c_char_p, ctypes.c_int64,   # ref, ref_len
+                ctypes.c_char_p, ctypes.c_int64,   # rg blob
+                _REF_CB,                           # multi-ref callback
+                ctypes.POINTER(ctypes.c_void_p),   # out blob
+                ctypes.POINTER(ctypes.c_int64),    # out blob len
+                ctypes.POINTER(ctypes.c_int32),    # out n
+            ]
             lib.mk_compress_block.restype = ctypes.c_int64
             lib.mk_compress_block.argtypes = [
                 ctypes.c_char_p, ctypes.c_int64,
@@ -843,6 +904,151 @@ def sample_confidences_batch(
     return status[:n], conf, tb, rec_idx
 
 
+def _motif_blob(motifs) -> np.ndarray | None:
+    """Serialize sequence motifs as int64 [n, (offset, len, mask...)] with
+    4-bit IUPAC base-class masks per position (A=1, C=2, G=4, T=8)."""
+    if not motifs:
+        return None
+    bit = {"A": 1, "C": 2, "G": 4, "T": 8}
+    vals: list[int] = [len(motifs)]
+    for m in motifs:
+        vals.append(int(m.forward_offset))
+        classes = m.classes()
+        vals.append(len(classes))
+        for cl in classes:
+            vals.append(sum(bit[c] for c in cl))
+    return np.asarray(vals, dtype=np.int64)
+
+
+def adjust_stream(
+    raw: bytes,
+    *,
+    edge_filter=None,
+    collapse=None,
+    caller=None,
+    filter_only: bool = False,
+    motifs=None,
+    discard_motifs: bool = False,
+    new_mode: str | None = None,
+    drop_implicit: bool = False,
+    force_mm_style: str | None = None,
+    n_threads: int | None = None,
+    span_comp_bytes: int = 8 << 20,
+    compress_level: int = -1,
+):
+    """Stream rewritten modBAM records from the compressed BAM bytes.
+
+    Yields (blob, n_written, errors) per ~span_comp_bytes span; ``blob`` is
+    a concatenation of ``<i32 len><record bytes>`` items byte-identical to
+    the Python engines.adjust.adjust_record_tags path
+    (tests/test_native_adjust.py). Reference: src/adjust.rs:211
+    adjust_modbam + src/mod_bam.rs:1299 format_mm_ml_tag.
+    """
+    lib = load()
+    if lib is None:
+        return
+    blob = encode_collapse(collapse)
+    c_blob = blob.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+    has_edge = edge_filter is not None
+    nt = n_threads if n_threads is not None else min(os.cpu_count() or 1, 8)
+
+    caller_mode = 0
+    pm_codes = np.zeros(1, dtype=np.int64)
+    pm_vals = np.zeros(1, dtype=np.float32)
+    fb4 = np.zeros(4, dtype=np.float32)
+    cn4 = np.zeros(4, dtype=np.float32)
+    n_pm = 0
+    if caller is not None:
+        from .modcodes import DNA_BASES, any_mod_code
+
+        caller_mode = 1 if filter_only else 2
+        items = list(caller.per_mod.items())
+        n_pm = len(items)
+        pm_codes = np.array(
+            [encode_code(c) for c, _ in items] or [0], dtype=np.int64
+        )
+        pm_vals = np.array(
+            [float(v) for _, v in items] or [0.0], dtype=np.float32
+        )
+        for b, base in enumerate(DNA_BASES):
+            t = caller.per_mod.get(any_mod_code(base))
+            if t is None:
+                t = caller.per_base.get(base)
+            if t is None:
+                t = caller.default_threshold
+            fb4[b] = float(t)
+            cn4[b] = caller.canonical_threshold(base)
+
+    mblob = _motif_blob(motifs)
+    c_mblob = (
+        mblob.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+        if mblob is not None
+        else None
+    )
+    from .modtags import EXPLICIT, IMPLICIT
+
+    nm = -1
+    if new_mode == EXPLICIT:
+        nm = 0
+    elif new_mode == IMPLICIT:
+        nm = 1
+    elif new_mode is not None:
+        nm = 2
+
+    off = 0
+    carry = b""
+    first = True
+    while True:
+        out = _MkAdjustOut()
+        rc = lib.mk_adjust_span(
+            as_cbuf(raw), len(raw), off, span_comp_bytes, carry,
+            len(carry),
+            1 if first else 0,
+            1 if has_edge else 0,
+            edge_filter.start_trim if has_edge else 0,
+            edge_filter.end_trim if has_edge else 0,
+            1 if (has_edge and edge_filter.inverted) else 0,
+            c_blob, len(blob),
+            caller_mode,
+            pm_codes.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            pm_vals.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            n_pm,
+            fb4.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            cn4.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            c_mblob, len(mblob) if mblob is not None else 0,
+            1 if discard_motifs else 0,
+            nm, 1 if drop_implicit else 0,
+            1 if force_mm_style == "MM" else 0,
+            compress_level, nt, ctypes.byref(out),
+        )
+        if rc != 0:
+            raise RuntimeError(f"mk_adjust_span failed rc={rc}")
+        try:
+            data = (
+                ctypes.string_at(out.blob, out.blob_len)
+                if out.blob_len
+                else b""
+            )
+            carry = (
+                ctypes.string_at(out.carry, out.carry_len)
+                if out.carry_len
+                else b""
+            )
+            errors = {
+                ERR_KINDS[i]: int(out.err_counts[i])
+                for i in range(len(ERR_KINDS))
+                if out.err_counts[i]
+            }
+            yield data, int(out.n_written), errors
+            eof = bool(out.eof)
+            off = out.next_off
+        finally:
+            lib.mk_free_adjust(ctypes.byref(out))
+        first = False
+        if eof:
+            break
+
+
 def compress_block(data: bytes, level: int = 6) -> bytes | None:
     """One BGZF block via the native codec (libdeflate when built in);
     None when the native library is unavailable or the block is oversize.
@@ -941,3 +1147,65 @@ def sample_region(
         lib.mk_free_buf(out_tb)
         lib.mk_free_buf(out_names)
     return conf, tb, int(out_consumed.value), names
+
+
+def cram_decode_container(
+    data, off: int, ref: bytes | None, rg_ids: list, get_ref=None
+):
+    """Decode one CRAM container into raw BAM record buffers (native
+    mk_cram_decode_container; mirrors io/cram.py SliceDecoder
+    byte-for-byte). Returns a list of record byte strings, or None when
+    the native library is unavailable or the container needs the Python
+    fallback (unsupported codecs). ``get_ref(tid) -> bytes`` enables
+    native multi-reference container decode (per-record RI lookup)."""
+    lib = load()
+    if lib is None:
+        return None
+    blob = "\n".join(rg_ids).encode()
+    out_blob = ctypes.c_void_p()
+    out_len = ctypes.c_int64()
+    out_n = ctypes.c_int32()
+    keep = {}  # tid -> bytes kept alive for the duration of the call
+
+    if get_ref is not None:
+        def _cb(tid, len_ptr):
+            try:
+                buf = keep.get(tid)
+                if buf is None:
+                    buf = bytes(get_ref(tid))
+                    keep[tid] = buf
+                len_ptr[0] = len(buf)
+                return ctypes.cast(ctypes.c_char_p(buf), ctypes.c_void_p).value
+            except Exception:
+                return None
+
+        cb = _REF_CB(_cb)
+    else:
+        cb = ctypes.cast(None, _REF_CB)
+    rc = lib.mk_cram_decode_container(
+        as_cbuf(data), len(data), off,
+        ref, len(ref) if ref is not None else 0,
+        blob, len(blob), cb,
+        ctypes.byref(out_blob), ctypes.byref(out_len), ctypes.byref(out_n),
+    )
+    if rc == 1:
+        return None  # python fallback
+    if rc != 0:
+        raise ValueError(f"corrupt CRAM container at offset {off}")
+    try:
+        raw = (
+            ctypes.string_at(out_blob, out_len.value)
+            if out_len.value
+            else b""
+        )
+    finally:
+        lib.mk_free_buf(out_blob)
+    recs = []
+    p = 0
+    import struct as _struct
+
+    while p + 4 <= len(raw):
+        (n,) = _struct.unpack_from("<i", raw, p)
+        recs.append(raw[p + 4 : p + 4 + n])
+        p += 4 + n
+    return recs

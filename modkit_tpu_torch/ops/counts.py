@@ -31,6 +31,14 @@ events and computes their calls, so the wrapper allocates with
 The wrapper runs the plain PyTorch version (the same call, then
 ``torch.bincount``) for tensors on the CPU and launches the kernel for
 tensors on a CUDA device; anything else raises.
+
+Also here: ``pileup_count_kernel`` and ``run_pileup_counts``, the port of
+the XLA-jitted functions of the same names in
+``modkit_tpu/ops/pileup_counts.py``: the call and count of all three event
+types (modcall, nocall, delete) into the full ``K = 6 + 4 * (M + 1)``
+layout. No Pallas kernel lies under them and no pileup route runs them, so
+they are torch ops on the inputs' device (the plain call, then
+``torch.bincount``), with no hand-written kernel.
 """
 
 from __future__ import annotations
@@ -60,6 +68,16 @@ def round_up_codes(m: int) -> int:
     return m
 
 
+_POS_BUCKETS = (32, 256, 2048, 16_384, 100_000, 1_000_000)
+
+
+def round_up_positions(n: int) -> int:
+    for b in _POS_BUCKETS:
+        if n <= b:
+            return b
+    return ((n + _POS_BUCKETS[-1] - 1) // _POS_BUCKETS[-1]) * _POS_BUCKETS[-1]
+
+
 def counts_layout(num_codes: int) -> dict:
     """Index helpers for the counter axis of the full count tensor
     ``K = 6 + 4 * (M + 1)`` (deletes, filtered, nocall per base, then the
@@ -78,10 +96,12 @@ def counts_layout(num_codes: int) -> dict:
 def modcall_counts_plain(rpos, strand, base, probs, thr_mod, thr_can,
                          num_positions: int):
     """Plain version of modcall_counts: the call over the f32 rows, then a
-    ``torch.bincount`` of the flat counter index."""
+    ``torch.bincount`` of the flat counter indices that lie in the output
+    (the kernel drops the others)."""
     km = 1 + 4 * (probs.shape[1] + 1)
+    size = num_positions * 2 * km
     flat = flat_indices(rpos, strand, base, probs, thr_mod, thr_can)
-    counts = torch.bincount(flat, minlength=num_positions * 2 * km)
+    counts = torch.bincount(flat[(flat >= 0) & (flat < size)], minlength=size)
     return counts.to(torch.int32).reshape(num_positions, 2, km)
 
 
@@ -179,3 +199,87 @@ def modcall_counts_numpy(
     flat = (rpos.astype(np.int64) * 2 + strand) * km + counter
     counts = np.bincount(flat, minlength=p * 2 * km).astype(np.int32)
     return counts.reshape(p, 2, km)
+
+
+# ---- the full count layout: modcall, nocall and delete events ----
+
+def pileup_count_kernel(rpos, strand, base_idx, ev_type, probs, valid,
+                        thr_mod, thr_can, *, num_positions: int,
+                        num_codes: int):
+    """Fused threshold call + count of one tile into int32
+    [num_positions, 2, K], K = 6 + 4 * (num_codes + 1) (``counts_layout``),
+    on the inputs' device.
+
+    ``rpos``, ``strand``, ``base_idx``, ``ev_type`` (0 modcall, 1 nocall,
+    2 delete) are integer [N], ``probs`` f32 [N, M] (−1 = absent class),
+    ``valid`` bool [N]. A modcall event counts at its call's counter
+    (filtered, canonical or mod j of its base), a nocall at ``2 + base``,
+    a delete at 0, all at the flat index ``(rpos * 2 + strand) * K +
+    counter``.
+
+    Out-of-range indices follow the JAX reference's ``.at[flat].add``: the
+    index is computed in int32 (so it wraps as XLA's does), a negative one
+    counts at ``flat + P * 2 * K`` when that lies in the output (JAX's
+    negative indexing), and anything still outside ``[0, P * 2 * K)`` is
+    dropped. So an event at rpos −1 lands in the last position's row,
+    and one at rpos P or beyond is dropped."""
+    m = num_codes
+    k = 6 + 4 * (m + 1)
+    size = num_positions * 2 * k
+    p_cols = [probs[:, j] for j in range(probs.shape[1])]
+    state = call_states_plain(
+        p_cols, [p >= 0 for p in p_cols], base_idx, thr_mod, thr_can
+    ).to(torch.int64)
+    b = base_idx.to(torch.int64)
+    mod_counter = torch.where(state == 0, 1, 6 + b * (m + 1) + (state - 1))
+    ev = ev_type.to(torch.int64)
+    counter = torch.where(ev == 0, mod_counter,
+                          torch.where(ev == 1, 2 + b, 0))
+    flat = (rpos.to(torch.int64) * 2 + strand.to(torch.int64)) * k + counter
+    flat = (flat + (1 << 31)) % (1 << 32) - (1 << 31)  # int32 arithmetic
+    flat = torch.where(flat < 0, flat + size, flat)
+    keep = valid.to(torch.bool) & (flat >= 0) & (flat < size)
+    counts = torch.bincount(flat[keep], minlength=size)
+    return counts.to(torch.int32).reshape(num_positions, 2, k)
+
+
+def run_pileup_counts(
+    rpos: np.ndarray,
+    strand: np.ndarray,
+    base_idx: np.ndarray,
+    ev_type: np.ndarray,
+    probs: np.ndarray,
+    thr_mod: np.ndarray,
+    thr_can: np.ndarray,
+    num_positions: int,
+    device="cuda",
+) -> np.ndarray:
+    """Host wrapper of ``pileup_count_kernel`` on ``device`` (``"cuda"`` by
+    default; ``"cpu"`` asks for the CPU): numpy counts
+    [num_positions, 2, K(m_pad)], m_pad = round_up_codes(m). As in the JAX
+    reference, the codes pad to m_pad (absent classes, zero thresholds)
+    and the positions to ``round_up_positions``, so out-of-range events
+    land where its padded call puts them."""
+    from ..parallel.devices import resolve_device
+
+    dev = resolve_device(device)
+    n, m = probs.shape
+    m_pad = round_up_codes(max(m, 1))
+    k = 6 + 4 * (m_pad + 1)
+    if n == 0:
+        return np.zeros((num_positions, 2, k), dtype=np.int32)
+    p_pad = round_up_positions(num_positions)
+    probs_p = np.pad(probs, ((0, 0), (0, m_pad - m)), constant_values=-1.0)
+    thr_mod_p = np.pad(thr_mod[:m], ((0, m_pad - m), (0, 0)))
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+
+    out = pileup_count_kernel(
+        t(rpos, np.int32), t(strand, np.int32), t(base_idx, np.int32),
+        t(ev_type, np.int32), t(probs_p, np.float32),
+        torch.ones(n, dtype=torch.bool, device=dev),
+        t(thr_mod_p, np.float32), t(thr_can, np.float32),
+        num_positions=p_pad, num_codes=m_pad,
+    )
+    return out[:num_positions].cpu().numpy()

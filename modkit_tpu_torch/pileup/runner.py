@@ -9,8 +9,10 @@ percentile_linear_interp_device).
 
 The port of modkit_tpu/pileup/runner.py. The run's device comes from
 ``PileupConfig.device`` (default ``"cuda"``); without a CUDA device a run
-that did not ask for the CPU raises. CRAM input and multi-host runs arrive
-in later slices of the port and are refused here.
+that did not ask for the CPU raises. CRAM input (``--ref`` names its
+FASTA) runs serially on the Python event route, whose count is kernel B on
+a CUDA device. Multi-host runs arrive in a later slice of the port and are
+refused here.
 """
 
 from __future__ import annotations
@@ -142,12 +144,10 @@ def run_pileup(cfg: PileupConfig) -> dict:
     log = get_logger()
     device = resolve_device(cfg.device)
     cfg = resolve_preset(cfg)
-    if _is_cram(cfg.in_bam):
-        raise NotImplementedError(
-            f"{cfg.in_bam} is CRAM: CRAM input arrives in slice 2 of "
-            "modkit_tpu_torch; convert it to BAM or use modkit_tpu"
-        )
-    reader = BamReader(cfg.in_bam)
+    from ..io.cram import open_alignment_reader
+
+    reader = open_alignment_reader(cfg.in_bam, cfg.reference_fasta)
+    is_cram_input = not isinstance(reader, BamReader)
     header = reader.header
 
     if cfg.combine_strands and not (cfg.cpg or cfg.motifs):
@@ -410,11 +410,11 @@ def run_pileup(cfg: PileupConfig) -> dict:
     if cfg.use_device:
         n_devices = max(1, len(compute_devices(device)))
     # parallel launches need thread-safe tile state: the native decode path
-    # qualifies; the Python event path (no native lib) shares a per-contig
-    # read cache and stays single-launcher
+    # qualifies; the Python event path (CRAM input / no native lib) shares
+    # a per-contig read cache and stays single-launcher
     from .. import native as _native
 
-    parallel_ok = _native.available()
+    parallel_ok = _native.available() and not is_cram_input
     n_workers = (
         max(1, min(cfg.threads, os.cpu_count() or 1)) if parallel_ok else 1
     )
@@ -432,6 +432,8 @@ def run_pileup(cfg: PileupConfig) -> dict:
     tls = threading.local()
 
     def tile_reader():
+        if is_cram_input:
+            return reader  # records decode once, then read-only
         r = getattr(tls, "reader", None)
         if r is None:
             r = tls.reader = BamReader(cfg.in_bam)
@@ -519,12 +521,6 @@ def run_pileup(cfg: PileupConfig) -> dict:
             "default": caller.default_threshold,
         },
     )
-
-
-def _is_cram(path: str) -> bool:
-    """CRAM files open with the magic ``CRAM`` (CRAM spec §6)."""
-    with open(path, "rb") as fh:
-        return fh.read(4) == b"CRAM"
 
 
 def resolve_caller(

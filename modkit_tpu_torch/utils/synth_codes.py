@@ -26,12 +26,20 @@ def make_multicode_modbam(
     coverage: float = 20.0,
     seed: int = 0,
     codes=NINE_CODES,
+    fasta_out: str | None = None,
 ) -> dict:
     """Write a sorted, indexed modBAM whose reads call every code of
-    ``codes`` at every C; returns summary stats."""
+    ``codes`` at every C (and, with ``fasta_out``, the FASTA the reads were
+    drawn from); returns summary stats."""
     rng = np.random.default_rng(seed)
     contig_len = max(int(n_reads * read_len / coverage), read_len + 1)
     genome = rng.choice(np.frombuffer(b"ACGT", dtype=np.uint8), size=contig_len)
+    if fasta_out is not None:
+        text = genome.tobytes().decode()
+        with open(fasta_out, "w") as fh:
+            fh.write(">synth1\n")
+            for i in range(0, len(text), 80):
+                fh.write(text[i : i + 80] + "\n")
     starts = np.sort(rng.integers(0, contig_len - read_len, size=n_reads))
     header = BamHeader(
         "@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:synth1\tLN:%d\n" % contig_len,

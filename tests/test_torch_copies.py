@@ -1,0 +1,80 @@
+"""The port's copies of modkit_tpu's jax-free modules stay byte-equal.
+
+``modkit_tpu_torch`` imports nothing of ``modkit_tpu``: each jax-free
+module it needs is its own copy, at the same path under the package. Each
+copy here must equal its original byte for byte; the modules that share a
+path with an original but are ports of it, not copies, are named with the
+reason they differ. A module of the port that has an original and is in
+neither list fails the last test, so a new copy cannot go unchecked.
+"""
+
+import filecmp
+import os
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "modkit_tpu_torch")
+ORIGINAL = os.path.join(REPO, "modkit_tpu")
+
+COPIES = (
+    "__main__.py",
+    "caller.py",
+    "charts.py",
+    "collapse.py",
+    "errors.py",
+    "logging.py",
+    "modcodes.py",
+    "modtags.py",
+    "motifs.py",
+    "position_filter.py",
+    "summary.py",
+    "writers.py",
+    "engines/__init__.py",
+    "engines/adjust.py",
+    "engines/modbam_util.py",
+    "engines/repair.py",
+    "io/__init__.py",
+    "io/bam.py",
+    "io/bgzf.py",
+    "io/cram.py",
+    "io/fasta.py",
+    "pileup/__init__.py",
+    "pileup/events.py",
+    "utils/synth.py",
+)
+
+# same path as an original, but a port of it
+PORTS = {
+    "__init__.py": "the package docstring names the port",
+    "cli.py": "only the ported subcommands; pileup takes --device",
+    "thresholds.py": "the forced-device percentile sorts with torch.sort "
+                     "on the run's device instead of a jitted jnp.sort",
+    "ops/__init__.py": "the docstring names the CUDA kernels",
+    "parallel/__init__.py": "the docstring: device selection, not a mesh",
+    "parallel/devices.py": "torch devices, the device rule; no mesh or "
+                           "multi-host runs yet",
+    "pileup/engine.py": "the kernels' wrappers, CUDA streams and pinned "
+                        "copies instead of jitted calls",
+    "pileup/runner.py": "the run's device, torch.profiler; multi-host "
+                        "runs refused",
+}
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copy_equals_its_original(rel):
+    assert filecmp.cmp(os.path.join(PORT, rel), os.path.join(ORIGINAL, rel),
+                       shallow=False), f"{rel} differs from modkit_tpu/{rel}"
+
+
+def test_every_module_with_an_original_is_listed():
+    found = set()
+    for dirpath, _dirs, files in os.walk(PORT):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(dirpath, f), PORT)
+            if os.path.exists(os.path.join(ORIGINAL, rel)):
+                found.add(rel.replace(os.sep, "/"))
+    assert found == set(COPIES) | set(PORTS)
+    assert not set(COPIES) & set(PORTS)

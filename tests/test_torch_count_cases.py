@@ -8,9 +8,10 @@ version, ``modcall_counts``) is held, exactly, to the Pallas kernel
 ``modcall_counts_numpy``, on inputs made with numpy from a seed and on the
 events the port's engine emits, read by read; and the wrappers' ``out`` is
 checked. The references take no event outside the output, so where a case
-has some (rpos -1 or P) every count gets the events the kernel keeps. The
-kernel itself is held to the plain version on the card in
-test_torch_cuda.py.
+has some (rpos -1 or P) every count gets the events the kernel keeps;
+the port's count is also called on every event of such a case, unfiltered,
+and must drop the others itself. The kernel itself is held to the plain
+version on the card in test_torch_cuda.py.
 """
 
 import os
@@ -130,6 +131,33 @@ def test_counts_keep_what_the_plain_count_keeps():
     want = torch.bincount(flat[keep], minlength=p * 2 * km).to(torch.int32)
     got = counts.modcall_counts(*[a[keep] for a in t[:4]], *t[4:], p)
     assert torch.equal(got.reshape(-1), want)
+
+
+@pytest.mark.parametrize("m", CODES)
+def test_counts_drop_out_of_range_events_unfiltered(m):
+    """``modcall_counts`` on the CPU called with every event of the
+    ``out-of-range`` case, unfiltered, plus events at rpos -1 and rpos P at
+    each strand: it keeps only the events whose flat index lies in the
+    output, as the kernel does, and equals a numpy ``bincount`` of those
+    indices."""
+    p, n = 1001 + 3 * m, 3000
+    rpos, strand, base, probs, thr_mod, thr_can = _case(
+        n, m, p, seed=n + 10 * m, shape="out-of-range")
+    rpos[-4:] = (-1, -1, p, p)
+    strand[-4:] = (0, 1, 0, 1)
+    t = _tensors(rpos, strand, base, probs, thr_mod, thr_can)
+    km = 1 + 4 * (m + 1)
+    flat = counts.flat_indices(*t).numpy()
+    keep = (flat >= 0) & (flat < p * 2 * km)
+    assert 0 < keep.sum() < n and not keep[-4:].any()
+    want = np.bincount(flat[keep], minlength=p * 2 * km).astype(np.int32)
+    out = torch.full((p, 2, km), FILL, dtype=torch.int32)
+    for got in (counts.modcall_counts(*t, p),
+                counts.modcall_counts(*t, p, out=out)):
+        assert got.dtype == torch.int32 and got.shape == (p, 2, km)
+        assert np.array_equal(got.numpy().reshape(-1), want)
+    assert np.array_equal(
+        counts.modcall_counts_plain(*t, p).numpy().reshape(-1), want)
 
 
 @pytest.mark.parametrize("reference", ["pallas", "numpy"])

@@ -3,9 +3,10 @@
 Kernel A (state: the quals entry for M in {1, 2, 4, 8}, the f32 entry for
 any M up to ``MAX_CLASSES``) and kernel B (counts, any M; every cell
 written, out-of-range events dropped), with a 9-code
-pileup on the card against the host route; and the count-kernel lab's
-kernels (``ops/lab_counts.py``) against their plain versions and the
-oracle.
+pileup on the card against the host route; a CRAM pileup on the card
+(kernel B on every tile) against the CPU run, and ``run_pileup_counts`` on
+the card against the CPU; and the count-kernel lab's kernels
+(``ops/lab_counts.py``) against their plain versions and the oracle.
 
 The tests marked ``cuda`` need an NVIDIA GPU (a CUDA kernel has no CPU
 mode) and skip without one; on a machine with a card run them with
@@ -178,13 +179,17 @@ def _count_case(n, m, p, seed, shape="random"):
 
 
 def _kept_counts(args, tm, tc, p):
-    """The plain count of the events whose flat index lies in the output
-    (the kernel drops the others)."""
+    """The plain count of every event, unfiltered, which must equal the
+    plain count of the events whose flat index lies in the output (the
+    kernel and the plain version both drop the others); and how many those
+    are."""
     m = args[3].shape[1]
     km = 1 + 4 * (m + 1)
     flat = counts.flat_indices(*args, tm, tc)
     keep = (flat >= 0) & (flat < p * 2 * km)
-    want = counts.modcall_counts_plain(*[a[keep] for a in args], tm, tc, p)
+    want = counts.modcall_counts_plain(*args, tm, tc, p)
+    assert torch.equal(want, counts.modcall_counts_plain(
+        *[a[keep] for a in args], tm, tc, p))
     return want, int(keep.sum())
 
 
@@ -309,6 +314,71 @@ def test_nine_code_pileup_on_cuda_equals_the_host_route(cuda_device,
         launched = state.STATE_F32_KERNEL_LAUNCHES - before
         assert (launched > 0) == (route == "cuda")
     assert filecmp.cmp(outs["cuda"], outs["host"], shallow=False)
+
+
+# ---- CRAM input (kernel B on the Python event route) ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["no-filtering", "estimate"])
+def test_cram_pileup_on_cuda_equals_the_cpu(cuda_device, tmp_path,
+                                            monkeypatch, mode):
+    """A CRAM runs serially on the Python event route: on the card every
+    tile with events launches kernel B once, kernel A never, and the
+    bedMethyl is the CPU run's."""
+    import filecmp
+
+    from modkit_tpu_torch.pileup.runner import PileupConfig, run_pileup
+    from modkit_tpu_torch.utils.synth import make_synthetic_modbam
+    from modkit_tpu_torch.utils.synth_cram import write_cram
+
+    bam, fa, cram = (str(tmp_path / f"s.{x}") for x in ("bam", "fa",
+                                                        "cram"))
+    make_synthetic_modbam(bam, n_reads=400, read_len=2000, coverage=20.0,
+                          seed=5, fasta_out=fa)
+    write_cram(bam, fa, cram, records_per_container=100)
+    monkeypatch.setenv("MODKIT_TPU_OFFLOAD", "always")
+    kw = dict(no_filtering=True) if mode == "no-filtering" else {}
+    outs = {}
+    for device in ("cuda", "cpu"):
+        outs[device] = str(tmp_path / f"{device}.bed")
+        before = (state.STATE_KERNEL_LAUNCHES,
+                  state.STATE_F32_KERNEL_LAUNCHES,
+                  counts.COUNT_KERNEL_LAUNCHES)
+        run_pileup(PileupConfig(in_bam=cram, out=outs[device],
+                                reference_fasta=fa, interval_size=10_000,
+                                suppress_progress=True, device=device, **kw))
+        launched = (state.STATE_KERNEL_LAUNCHES - before[0],
+                    state.STATE_F32_KERNEL_LAUNCHES - before[1],
+                    counts.COUNT_KERNEL_LAUNCHES - before[2])
+        if device == "cuda":
+            tiles = {int(line.split("\t", 2)[1]) // 10_000
+                     for line in open(outs[device])}
+            assert launched == (0, 0, len(tiles)) and tiles
+        else:
+            assert launched == (0, 0, 0)
+    assert filecmp.cmp(outs["cuda"], outs["cpu"], shallow=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 3, 9])
+def test_run_pileup_counts_on_cuda_equals_the_cpu(cuda_device, m):
+    rng = np.random.default_rng(40 + m)
+    n, p = 300_000, 100_000
+    rpos = rng.integers(0, p, n).astype(np.int32)
+    rpos[::97] = -1
+    rpos[1::89] = p
+    strand = rng.integers(0, 2, n).astype(np.int32)
+    base = rng.integers(0, 4, n).astype(np.int32)
+    ev_type = rng.integers(0, 3, n).astype(np.int32)
+    probs = rng.random((n, m), dtype=np.float32) / np.float32(m)
+    probs[rng.random((n, m)) < 0.3] = -1.0
+    thr_mod = rng.random((m, 4), dtype=np.float32) * np.float32(0.5)
+    thr_can = rng.random(4, dtype=np.float32) * np.float32(0.8)
+    args = (rpos, strand, base, ev_type, probs, thr_mod, thr_can, p)
+    got = counts.run_pileup_counts(*args, device="cuda")
+    want = counts.run_pileup_counts(*args, device="cpu")
+    assert got.dtype == np.int32 and np.array_equal(got, want)
+    assert 0 < got.sum() < n
 
 
 # ---- the count-kernel lab (ops/lab_counts.py) ----

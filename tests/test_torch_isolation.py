@@ -7,8 +7,8 @@
   is byte-equal (``cmp``) to modkit_tpu's on the same synthetic modBAM;
   so does the count-kernel lab's entry point, ``tools/kernel_lab.py``.
 - Without a CUDA device, an entry point that did not ask for the CPU
-  raises instead of running there; CRAM input and multi-host runs, which
-  arrive in later slices, are refused.
+  raises instead of running there; multi-host runs, which arrive in a
+  later slice, are refused. (CRAM input runs: tests/test_torch_cram.py.)
 """
 
 import ast
@@ -121,14 +121,6 @@ def test_cli_device_defaults_to_cuda():
     args = build_parser().parse_args(["pileup", "in.bam", "out.bed"])
     assert args.device == "cuda"
     assert PileupConfig(in_bam="a", out="b").device == "cuda"
-
-
-def test_cram_input_is_refused(tmp_path):
-    cram = tmp_path / "x.cram"
-    cram.write_bytes(b"CRAM\x03\x00" + bytes(20))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        run_pileup(PileupConfig(in_bam=str(cram), out=str(tmp_path / "o"),
-                                no_filtering=True, device="cpu"))
 
 
 def test_multi_host_is_refused(tmp_path, bam, monkeypatch):
