@@ -60,7 +60,21 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
 11. ``run_pileup_counts`` (the full K = 6 + 4(M+1) count of modcall,
     nocall and delete events, a torch op) on ``cuda`` against the CPU,
     exactly, at P = 100 000, M = 2, on the bench tile's events with
-    out-of-range ones among them.
+    out-of-range ones among them;
+12. downstream of pileup, through the port's CLI: sample A is phase 10's
+    10 000-read modBAM, sample B is ``adjust-mods --convert h m`` of it;
+    the pileup of each on ``cuda`` and under MODKIT_TPU_OFFLOAD=never,
+    byte-equal, kernel A launched once per tile with events; each
+    bedMethyl bgzipped and tabix-indexed; ``dmr pair`` over 500 regions of
+    2 kb and per site, ``dmr multi`` over A, B and A, ``bedmethyl
+    merge``/``tobigwig``, ``stats`` and ``localize`` on the bedMethyls of
+    both routes (four processes side by side: each route's dmr steps and
+    its tools), every output byte-equal between them; ``extract calls``
+    with the default threshold estimate on phase 6's modBAM and
+    ``pileup-hemi --cpg`` on a 2 000-read two-strand modBAM
+    (``utils/synth_duplex.py``), each under MODKIT_TPU_OFFLOAD=always (the
+    estimate's sort on the card, counted by ``thresholds.CUDA_SORTS``) and
+    ``never`` (none), byte-equal.
 
 Before phase 3 it prints the card's measured peaks (``tools/true_bench.py``:
 HBM read and copy rates, bf16 ``torch.matmul`` rate) beside the data-sheet
@@ -94,6 +108,11 @@ BENCH_READS, BENCH_READ_LEN, BENCH_COVERAGE = 50_000, 5_000, 25.0
 # the CRAM phase's depth: the CRAM route is serial, so the bench's reads
 # are cut to a fifth (a 2 Mbp contig at the same coverage)
 CRAM_READS = 10_000
+# phase 12: dmr's regions, and the two-strand modBAM of pileup-hemi, whose
+# serial Python loop visits every read of a tile at every CpG of it: 1 kb
+# reads and 10 kb tiles keep it near 10 s
+DMR_REGIONS, DMR_REGION_LEN = 500, 2_000
+HEMI_READS, HEMI_READ_LEN, HEMI_INTERVAL = 2_000, 1_000, 10_000
 TILE = 100_000
 COUNT_POSITIONS = 100_000
 
@@ -366,13 +385,24 @@ def tile_layers(tile, dev, reader) -> None:
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0, just before a path runs."""
+    """Set every kernel's launch count, and the count of threshold sorts
+    on the card, to 0, just before a path runs."""
+    from modkit_tpu_torch import thresholds
     from modkit_tpu_torch.ops import counts, lab_counts, state
 
     state.STATE_KERNEL_LAUNCHES = 0
     state.STATE_F32_KERNEL_LAUNCHES = 0
     counts.COUNT_KERNEL_LAUNCHES = 0
     lab_counts.reset_launches()
+    thresholds.CUDA_SORTS = 0
+
+
+def read_sorts() -> int:
+    """Threshold estimates' ``torch.sort`` calls on a CUDA device since
+    reset_launches()."""
+    from modkit_tpu_torch import thresholds
+
+    return thresholds.CUDA_SORTS
 
 
 def read_launches() -> tuple[int, int, int]:
@@ -633,6 +663,244 @@ def phase_pileup_counts(tile, dev) -> None:
         f"({int(got.sum())} events counted, shape {got.shape}); host clock "
         f"cuda {(t1 - t0) * 1e3:.1f} ms with copies, cpu "
         f"{(t2 - t1) * 1e3:.1f} ms")
+
+
+def cli(argv: list) -> float:
+    """One call of the port's CLI in this process; returns its seconds."""
+    from modkit_tpu_torch.cli import main as port_main
+
+    t0 = time.perf_counter()
+    require(port_main(argv) == 0, "modkit_tpu_torch " + " ".join(argv[:2]))
+    return time.perf_counter() - t0
+
+
+def count_lines(path: str) -> int:
+    n = 0
+    with open(path, "rb") as fh:
+        while chunk := fh.read(1 << 24):
+            n += chunk.count(b"\n")
+    return n
+
+
+def same_files(a: str, b: str, what: str) -> None:
+    """Byte-equal files, or directories of byte-equal files."""
+    if os.path.isdir(a):
+        names = sorted(os.listdir(a))
+        require(names and names == sorted(os.listdir(b)),
+                f"{what}: other files")
+        pairs = [(os.path.join(a, n), os.path.join(b, n)) for n in names]
+    else:
+        pairs = [(a, b)]
+    for x, y in pairs:
+        require(os.path.getsize(x) > 0, f"{what}: {x} is empty")
+        require(filecmp.cmp(x, y, shallow=False),
+                f"{what}: {os.path.basename(x)} differs between routes")
+
+
+# the CLI runs of phase 12's bedMethyl steps, one process per route
+_STEPS_DRIVER = (
+    "import json, sys, time\n"
+    "from modkit_tpu_torch.cli import main\n"
+    "times = {}\n"
+    "for name, argv in json.loads(sys.argv[1]):\n"
+    "    t0 = time.perf_counter()\n"
+    "    assert main(argv) == 0, name\n"
+    "    times[name] = time.perf_counter() - t0\n"
+    "print('STEP_TIMES ' + json.dumps(times))\n"
+)
+
+
+def downstream_steps(work: str, route: str, beds: dict, roi: str, sizes: str,
+                     fa: str) -> tuple[list, list]:
+    """(name, argv, output) of the bedMethyl steps on one route's
+    bedMethyls of samples A and B: the dmr steps, and the tools."""
+    a, b = beds[("a", route)], beds[("b", route)]
+    o = os.path.join(work, f"down.{route}")
+    dmr = ["--ref", fa, "--base", "C", "--suppress-progress"]
+    dmr_steps = [
+        ("dmr pair regions", ["dmr", "pair", "-a", a, "-b", b, "-r", roi,
+                              "-o", o + ".pair_roi.bed", *dmr],
+         o + ".pair_roi.bed"),
+        ("dmr pair sites", ["dmr", "pair", "-a", a, "-b", b, "-o",
+                            o + ".pair_sites.bed", *dmr],
+         o + ".pair_sites.bed"),
+        ("dmr multi", ["dmr", "multi", "-s", a, "a", "-s", b, "b", "-s", a,
+                       "c", "-r", roi, "-o", o + ".multi", *dmr],
+         o + ".multi"),
+    ]
+    tool_steps = [
+        ("bedmethyl merge", ["bedmethyl", "merge", a, b, "-g", sizes, "-o",
+                             o + ".merged.bed"], o + ".merged.bed"),
+        ("bedmethyl tobigwig", ["bedmethyl", "tobigwig", a[:-len(".gz")],
+                                o + ".bw", "-g", sizes, "-m", "m,h"],
+         o + ".bw"),
+        ("stats", ["stats", a, "--regions", roi, "-o", o + ".stats.tsv"],
+         o + ".stats.tsv"),
+        ("localize", ["localize", a, "--regions", roi, "-r", sizes, "-o",
+                      o + ".localize.tsv"], o + ".localize.tsv"),
+    ]
+    return dmr_steps, tool_steps
+
+
+def run_steps_side_by_side(work: str, steps: dict) -> dict:
+    """Run each list of steps in a process of its own, all at once;
+    returns {key: {step: seconds}}."""
+    procs = {}
+    try:
+        for key, rsteps in steps.items():
+            log_path = os.path.join(work, f"down.{key}.log")
+            with open(log_path, "w") as fh:
+                procs[key] = (subprocess.Popen(
+                    [sys.executable, "-c", _STEPS_DRIVER,
+                     json.dumps([(n, argv) for n, argv, _ in rsteps])],
+                    cwd=HERE, stdout=fh, stderr=subprocess.STDOUT), log_path)
+        times = {}
+        for key, (proc, log_path) in procs.items():
+            rc = proc.wait(timeout=900)
+            text = open(log_path).read()
+            require(rc == 0, f"downstream steps {key}: exit {rc}:\n"
+                    + text[-4000:])
+            line = [x for x in text.splitlines()
+                    if x.startswith("STEP_TIMES ")][-1]
+            times[key] = json.loads(line.split(" ", 1)[1])
+        return times
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def phase_downstream(work: str, a_bam: str, fa: str, small_bam: str,
+                     card: str) -> int:
+    """Phase 12: the port's tools downstream of pileup, on the card's and
+    the host's bedMethyls; returns kernel A's launches over the two cuda
+    pileups."""
+    import numpy as np
+
+    from modkit_tpu_torch.io.bam import BamReader, build_bai
+    from modkit_tpu_torch.io.tabix import bgzip_text, build_tabix
+    from modkit_tpu_torch.utils.synth_duplex import make_duplex_modbam
+
+    t_phase = time.perf_counter()
+    b_bam = os.path.join(work, "down_b.bam")
+    t = cli(["adjust-mods", a_bam, b_bam, "--convert", "h", "m",
+             "--suppress-progress"])
+    build_bai(b_bam)
+    log(f"downstream: sample B = adjust-mods --convert h m of A "
+        f"({CRAM_READS} reads) in {t:.2f} s")
+
+    # 1. pileup of A and B on cuda and on the host, indexed
+    beds, launches = {}, 0
+    for sample, bam in (("a", a_bam), ("b", b_bam)):
+        outs, secs = {}, {}
+        for route, offload in (("cuda", "always"), ("host", "never")):
+            out = os.path.join(work, f"down_{sample}.{route}.bed")
+            os.environ["MODKIT_TPU_OFFLOAD"] = offload
+            reset_launches()
+            try:
+                secs[route] = cli(["pileup", bam, out, "--no-filtering",
+                                   "--suppress-progress"])
+            finally:
+                os.environ["MODKIT_TPU_OFFLOAD"] = "always"
+            n_state, n_f32, n_count = read_launches()
+            outs[route] = out
+            if route == "cuda":
+                n_tiles = tiles_with_rows(out)
+                require(n_state == n_tiles and n_f32 == 0 and n_count == 0,
+                        f"downstream pileup {sample}: launches "
+                        f"{(n_state, n_f32, n_count)} for {n_tiles} tiles")
+                launches += n_state
+            else:
+                require((n_state, n_f32, n_count) == (0, 0, 0),
+                        f"downstream pileup {sample}: the host route "
+                        "launched")
+        same_files(outs["cuda"], outs["host"], f"downstream pileup {sample}")
+        t0 = time.perf_counter()
+        for route, out in outs.items():
+            bgzip_text(out, out + ".gz")
+            build_tabix(out + ".gz")
+            beds[(sample, route)] = out + ".gz"
+        log(f"downstream pileup {sample}: {count_lines(outs['cuda'])} rows, "
+            f"{n_tiles} tiles, kernel A launched {n_tiles} times on cuda; "
+            f"cuda {secs['cuda']:.2f} s ({CRAM_READS / secs['cuda']:.1f} "
+            f"reads/s), host {secs['host']:.2f} s; byte-equal; bgzip + "
+            f"tabix of both {time.perf_counter() - t0:.2f} s")
+
+    # 2-3. dmr and the bedMethyl tools on each route's bedMethyls
+    length = BamReader(a_bam).header.refs[0].length
+    roi = os.path.join(work, "down_roi.bed")
+    with open(roi, "w") as fh:
+        for i, start in enumerate(np.linspace(0, length - DMR_REGION_LEN,
+                                              DMR_REGIONS, dtype=np.int64)):
+            fh.write(f"synth1\t{start}\t{start + DMR_REGION_LEN}\troi{i}\n")
+    sizes = os.path.join(work, "down_sizes.tsv")
+    with open(sizes, "w") as fh:
+        fh.write(f"synth1\t{length}\n")
+    # four processes side by side: each route's dmr steps and its tools
+    steps = {}
+    for route in ("cuda", "host"):
+        dmr_steps, tool_steps = downstream_steps(work, route, beds, roi,
+                                                 sizes, fa)
+        steps[f"{route}.dmr"], steps[f"{route}.tools"] = dmr_steps, tool_steps
+    times = {}
+    for key, t in run_steps_side_by_side(work, steps).items():
+        times.setdefault(key.split(".")[0], {}).update(t)
+    for group in ("dmr", "tools"):
+        for (name, _, out_c), (_, _, out_h) in zip(steps[f"cuda.{group}"],
+                                                   steps[f"host.{group}"]):
+            same_files(out_c, out_h, name)
+    sites = count_lines(steps["cuda.dmr"][1][2])
+    # what each dmr step scores: regions (3 pairs of samples in multi)
+    units = {"dmr pair regions": (DMR_REGIONS, "regions"),
+             "dmr pair sites": (sites, "sites"),
+             "dmr multi": (3 * DMR_REGIONS, "regions")}
+    for name in times["cuda"]:
+        t = times["cuda"][name]
+        rate = (f", {units[name][0] / t:.1f} {units[name][1]}/s"
+                if name in units else "")
+        log(f"downstream {name}: cuda bedMethyls {t:.2f} s{rate}, host "
+            f"bedMethyls {times['host'][name]:.2f} s (4 processes side by "
+            "side); byte-equal")
+    log(f"downstream dmr pair sites: {sites} sites scored")
+
+    # 4-5. the estimates' forced sort: extract calls and pileup-hemi
+    hemi_bam = os.path.join(work, "hemi.bam")
+    hemi_fa = os.path.join(work, "hemi.fa")
+    make_duplex_modbam(hemi_bam, n_reads=HEMI_READS, read_len=HEMI_READ_LEN,
+                       coverage=BENCH_COVERAGE, seed=4, fasta_out=hemi_fa)
+    for name, argv, out, n_in, unit in (
+            ("extract calls", ["extract", "calls", small_bam, "{out}",
+                               "--force", "--suppress-progress"],
+             "extract", 2000, "rows"),
+            ("pileup-hemi", ["pileup-hemi", hemi_bam, "-o", "{out}", "--cpg",
+                             "-r", hemi_fa, "-i", str(HEMI_INTERVAL),
+                             "--suppress-progress"],
+             "hemi", HEMI_READS, "reads")):
+        outs, secs, sorts = {}, {}, {}
+        for offload in ("always", "never"):
+            outs[offload] = os.path.join(work, f"{out}.{offload}.txt")
+            os.environ["MODKIT_TPU_OFFLOAD"] = offload
+            reset_launches()
+            try:
+                secs[offload] = cli([x.format(out=outs[offload])
+                                     for x in argv])
+            finally:
+                os.environ["MODKIT_TPU_OFFLOAD"] = "always"
+            sorts[offload] = read_sorts()
+        require(sorts["always"] > 0 and sorts["never"] == 0,
+                f"{name}: sorts on the card {sorts}")
+        same_files(outs["always"], outs["never"], name)
+        rows = count_lines(outs["always"])
+        require(rows > 1, f"{name}: no rows")
+        rate = (rows - 1 if unit == "rows" else n_in) / secs["always"]
+        log(f"downstream {name}: {rows} lines, always {secs['always']:.2f} s "
+            f"({sorts['always']} sorts on the card, {rate:.0f} {unit}/s), "
+            f"never {secs['never']:.2f} s (no sort on the card); byte-equal")
+        for path in outs.values():
+            os.remove(path)
+    log(f"downstream phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
 
 
 def phase_peaks() -> None:
@@ -1057,6 +1325,10 @@ def main() -> int:
         lab_rows = phase_lab()
         cram_launches = phase_cram(work)
         phase_pileup_counts(tile, dev)
+        down_launches = phase_downstream(
+            work, os.path.join(work, "cram_src.bam"),
+            os.path.join(work, "cram_src.fa"),
+            os.path.join(work, "small.bam"), card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1084,6 +1356,8 @@ def main() -> int:
              **many["modcall_counts_any_m"]),
         *lab_rows,
     ]
+    log(f"kernel A launches: main path {state_launches}, downstream "
+        f"pileups {down_launches}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

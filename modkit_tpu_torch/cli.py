@@ -3,10 +3,15 @@
 The subcommands of modkit_tpu's CLI (cli.py) that the port has, with
 modkit_tpu's flags: ``pileup`` (BAM or CRAM; ``--device`` chooses the
 run's device, ``cuda`` by default), ``summary``, ``sample-probs``,
-``adjust-mods``, ``call-mods``, ``update-tags``, ``repair`` and ``modbam
-check-tags``/``sample-reads``. Only ``pileup`` works on the device; the
-others run on the host, as in modkit_tpu. The other subcommands of
-modkit_tpu arrive in later slices of the port.
+``adjust-mods``, ``call-mods``, ``update-tags``, ``extract full``/``calls``,
+``validate``, ``pileup-hemi``, ``dmr pair``/``multi``, ``stats``,
+``localize``, ``bedmethyl merge``/``tobigwig``, ``repair`` and ``modbam
+check-tags``/``sample-reads``. Only ``pileup`` runs its counting on the
+device; the others run on the host, as in modkit_tpu. Under
+MODKIT_TPU_OFFLOAD=always every threshold estimate sorts its confidences
+on the card (``thresholds.thresholds_from_confidences``), so a subcommand
+that estimates a threshold then needs one. ``entropy``, ``motif`` and
+``find-motifs`` are not in the port yet.
 """
 
 from __future__ import annotations
@@ -227,6 +232,207 @@ def build_parser() -> argparse.ArgumentParser:
     _add_logging(p)
     p.set_defaults(func=cmd_update_tags)
 
+    # ---- extract ----
+    p = sub.add_parser("extract", help="read-level table of mod calls")
+    esub = p.add_subparsers(dest="extract_mode", required=True)
+    for mode in ("full", "calls"):
+        q = esub.add_parser(mode)
+        q.add_argument("in_bam")
+        q.add_argument("out_path")
+        q.add_argument("-i", "--interval-size", type=int, default=100_000)
+        q.add_argument("--ref", "--reference", dest="reference_fasta", default=None)
+        q.add_argument("--force", action="store_true")
+        q.add_argument("--ignore", default=None)
+        q.add_argument("--mapped-only", action="store_true")
+        q.add_argument("--allow-non-primary", action="store_true")
+        q.add_argument("--region", default=None)
+        q.add_argument("--kmer-size", type=int, default=5)
+        q.add_argument("--edge-filter", default=None)
+        q.add_argument("--invert-edge-filter", action="store_true")
+        q.add_argument("--no-headers", action="store_true")
+        q.add_argument("--include-bed", "--include-positions",
+                       dest="include_bed", default=None)
+        q.add_argument("-v", "--exclude-bed", dest="exclude_bed",
+                       default=None)
+        q.add_argument("--motif", nargs=2, action="append", default=None)
+        q.add_argument("--cpg", action="store_true")
+        q.add_argument("--bgzf", action="store_true",
+                       help="compress output with parallel bgzf")
+        q.add_argument("--out-threads", type=int, default=4,
+                       help="threads for parallel bgzf writing")
+        q.add_argument("-q", "--queue-size", type=int, default=1000)
+        q.add_argument("--ignore-implicit", action="store_true",
+                       help="omit implicit (inferred) canonical calls")
+        _add_common_sampling(q)
+        _add_logging(q)
+        if mode == "calls":
+            q.add_argument("--pass-only", action="store_true")
+            q.add_argument("--mod-threshold", dest="mod_thresholds", action="append", default=None)
+            _add_threshold_args(q)
+        q.set_defaults(func=cmd_extract, extract_mode=mode)
+
+    # ---- dmr pair/multi (dmr/subcommands.rs:29-55) ----
+    p = sub.add_parser("dmr", help="differential methylation scoring")
+    dsub = p.add_subparsers(dest="dmr_mode", required=True)
+    q = dsub.add_parser("pair", help="compare a pair of samples")
+    q.add_argument("-a", action="append", default=[], dest="a")
+    q.add_argument("-b", action="append", default=[], dest="b")
+    q.add_argument("--index-a", action="append", default=[], dest="index_a",
+                   help="explicit tabix index for the -a bedMethyl(s)")
+    q.add_argument("--index-b", action="append", default=[], dest="index_b",
+                   help="explicit tabix index for the -b bedMethyl(s)")
+    q.add_argument("-o", "--out-path", default=None)
+    q.add_argument("--header", "--with-header", action="store_true")
+    q.add_argument("-r", "--regions", "--regions-bed", default=None,
+                   dest="regions")
+    q.add_argument("--ref", required=True)
+    q.add_argument("--segment", default=None, dest="segment")
+    q.add_argument("--max-gap-size", type=int, default=5000)
+    q.add_argument("--dmr-prior", type=float, default=0.1)
+    q.add_argument("--diff-stay", type=float, default=0.9)
+    q.add_argument("--significance-factor", type=float, default=0.01)
+    q.add_argument("--log-transition-decay", action="store_true")
+    q.add_argument("--decay-distance", type=int, default=500)
+    q.add_argument("--fine-grained", action="store_true")
+    q.add_argument("-m", "--base", "--modified-bases", action="append",
+                   default=[], dest="base")
+    q.add_argument("--assign-code", action="append", default=None)
+    q.add_argument("--log-filepath", "--log", default=None)
+    q.add_argument("-t", "--threads", type=int, default=4)
+    q.add_argument("--io-threads", type=int, default=4)
+    q.add_argument("--batch-size", "--batch", type=int, default=None)
+    q.add_argument("-k", "--mask", action="store_true")
+    q.add_argument("--suppress-progress", action="store_true")
+    q.add_argument("-f", "--force", action="store_true")
+    q.add_argument("--missing", choices=["quiet", "warn", "fail"],
+                   default="warn")
+    q.add_argument("--min-valid-coverage", "--min-coverage", type=int,
+                   default=0)
+    q.add_argument("--prior", nargs=2, type=float, default=None)
+    q.add_argument("--delta", type=float, default=0.05)
+    q.add_argument("-N", "--n-sample-records", type=int, default=10_042)
+    q.add_argument("--max-coverages", nargs=2, type=int, default=None)
+    q.add_argument("--cap-coverages", action="store_true")
+    q.add_argument("-i", "--interval-size", type=int, default=100_000)
+    q.set_defaults(func=cmd_dmr_pair, command_name="dmr pair")
+    q = dsub.add_parser("multi", help="compare all pairs of samples")
+    q.add_argument("-s", "--sample", nargs=2, action="extend", default=[])
+    q.add_argument("-r", "--regions", "--regions-bed", required=True,
+                   dest="regions")
+    q.add_argument("--header", "--with-header", action="store_true")
+    q.add_argument("-o", "--out-dir", required=True)
+    q.add_argument("-p", "--prefix", default=None)
+    q.add_argument("--ref", required=True)
+    q.add_argument("-m", "--base", "--modified-bases", action="append",
+                   default=[], dest="base")
+    q.add_argument("--assign-code", action="append", default=None)
+    q.add_argument("--log-filepath", "--log", default=None)
+    q.add_argument("-t", "--threads", type=int, default=4)
+    q.add_argument("--io-threads", type=int, default=4)
+    q.add_argument("-k", "--mask", action="store_true")
+    q.add_argument("--suppress-progress", action="store_true")
+    q.add_argument("-f", "--force", action="store_true")
+    q.add_argument("--missing", choices=["quiet", "warn", "fail"],
+                   default="warn")
+    q.add_argument("--min-valid-coverage", "--min-coverage", type=int,
+                   default=0)
+    q.set_defaults(func=cmd_dmr_multi, command_name="dmr multi")
+
+    # ---- stats (stats/subcommand.rs:25-66) ----
+    p = sub.add_parser("stats", help="per-region methylation statistics")
+    p.add_argument("in_bedmethyl")
+    p.add_argument("--regions", required=True)
+    p.add_argument("-c", "--mod-codes", "--codes", action="extend",
+                   type=lambda s: s.split(","), default=None)
+    p.add_argument("-m", "--min-coverage", "--min-cov", type=int, default=1)
+    p.add_argument("-o", "--out-table", "--out", required=True)
+    p.add_argument("--force", action="store_true")
+    p.add_argument("--no-header", action="store_true")
+    p.add_argument("--log-filepath", "--log", default=None)
+    p.add_argument("-t", "--threads", type=int, default=4)
+    p.add_argument("--io-threads", type=int, default=2)
+    p.set_defaults(func=cmd_stats, command_name="stats")
+
+    # ---- localize (localise/subcommand.rs:27-104) ----
+    p = sub.add_parser(
+        "localize", aliases=["localise"],
+        help="aggregate methylation around features",
+    )
+    p.add_argument("in_bedmethyl")
+    p.add_argument("--regions", required=True)
+    p.add_argument("--chart", default=None, dest="chart_filepath")
+    p.add_argument("--name", default=None, dest="chart_name")
+    p.add_argument("-w", "--window", type=int, default=2000)
+    p.add_argument("-s", "--stranded", choices=["same", "opposite"],
+                   default=None)
+    p.add_argument("--stranded-features", choices=["+", "-", "."],
+                   default=None)
+    p.add_argument("--min-coverage", type=int, default=3)
+    p.add_argument("-r", "--genome-sizes", required=True)
+    p.add_argument("-o", "--out-file", default=None)
+    p.add_argument("--log-filepath", "--log", default=None)
+    p.add_argument("-t", "--threads", type=int, default=4)
+    p.add_argument("--io-threads", type=int, default=2)
+    p.add_argument("-f", "--force", action="store_true")
+    p.add_argument("--batch-size", type=int, default=500_000)
+    p.set_defaults(func=cmd_localize, command_name="localize")
+
+    # ---- bedmethyl merge/tobigwig (bedmethyl_util/subcommands.rs) ----
+    p = sub.add_parser("bedmethyl", help="bedMethyl utilities")
+    bsub = p.add_subparsers(dest="bedmethyl_mode", required=True)
+    q = bsub.add_parser("merge", help="merge N tabix bedMethyl files")
+    q.add_argument("in_bedmethyl", nargs="+")
+    q.add_argument("-o", "--out-bed", required=True)
+    q.add_argument("-g", "--genome-sizes", required=True)
+    q.add_argument("--force", action="store_true")
+    q.add_argument("--chunk-size", type=int, default=None)
+    q.add_argument("-i", "--interval-size", type=int, default=100_000)
+    q.add_argument("--log-filepath", "--log", default=None)
+    q.add_argument("-t", "--threads", type=int, default=4)
+    q.add_argument("--queue-size", type=int, default=30)
+    q.add_argument("--io-threads", type=int, default=2)
+    q.set_defaults(func=cmd_bedmethyl_merge, command_name="bedmethyl merge")
+    q = bsub.add_parser("tobigwig", help="bedMethyl -> bigWig track")
+    q.add_argument("in_bedmethyl")
+    q.add_argument("out_fp")
+    q.add_argument("-g", "--sizes", required=True, dest="chromsizes")
+    q.add_argument("-m", "--mod-codes", "--mod-code", action="extend",
+                   type=lambda s: s.split(","), required=True)
+    q.add_argument("--negative-strand-values", action="store_true")
+    q.add_argument("-t", "--nthreads", type=int, default=6)
+    q.add_argument("-z", "--nzooms", type=int, default=10)
+    q.add_argument("--zooms", type=lambda s: [int(x) for x in s.split(",")],
+                   default=None)
+    q.add_argument("-u", "--uncompressed", action="store_true")
+    q.add_argument("--block-size", type=int, default=256)
+    q.add_argument("--items-per-slot", type=int, default=1024)
+    q.add_argument("--inmemory", action="store_true")
+    q.add_argument("--log-filepath", "--log", default=None)
+    q.add_argument("--suppress-progress", action="store_true")
+    q.set_defaults(
+        func=cmd_bedmethyl_tobigwig, command_name="bedmethyl tobigwig"
+    )
+
+    # ---- validate (validate/subcommand.rs:797-889) ----
+    p = sub.add_parser("validate", help="accuracy vs ground-truth BEDs")
+    p.add_argument("--bam-and-bed", nargs=2, action="extend", default=[],
+                   metavar=("BAM", "BED"))
+    p.add_argument("--ignore", default=None)
+    p.add_argument("--edge-filter", default=None)
+    p.add_argument("--invert-edge-filter", action="store_true")
+    p.add_argument("-c", "--canonical-base", default=None,
+                   choices=["A", "C", "G", "T"])
+    p.add_argument("--min-identity", type=float, default=None)
+    p.add_argument("--min-length", type=int, default=None)
+    p.add_argument("-p", "--filter-quantile", type=float, default=0.1)
+    p.add_argument("--filter-threshold", "--pass_threshold", type=float,
+                   default=None)
+    p.add_argument("-t", "--threads", type=int, default=4)
+    p.add_argument("--suppress-progress", action="store_true")
+    p.add_argument("-o", "--out-filepath", "--out", default=None)
+    p.add_argument("--log-filepath", "--log", default=None)
+    p.set_defaults(func=cmd_validate, command_name="validate")
+
     # ---- repair (repair_tags.rs:23-44) ----
     p = sub.add_parser(
         "repair", help="project mod tags from donor onto trimmed reads"
@@ -240,6 +446,37 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-filepath", default=None)
     p.add_argument("-t", "--threads", type=int, default=4)
     p.set_defaults(func=cmd_repair, command_name="repair")
+
+    # ---- pileup-hemi (pileup/subcommand.rs:827+) ----
+    p = sub.add_parser(
+        "pileup-hemi", help="double-stranded (hemi) pattern pileup"
+    )
+    p.add_argument("in_bam")
+    p.add_argument("-o", "--out-bed", default=None)
+    p.add_argument("--cpg", action="store_true")
+    p.add_argument("--motif", nargs=2, default=None)
+    p.add_argument("-r", "--ref", "--reference", required=True)
+    p.add_argument("--region", default=None)
+    p.add_argument("--sample-region", default=None)
+    p.add_argument("--ignore", default=None)
+    p.add_argument("--combine-mods", action="store_true")
+    p.add_argument("--edge-filter", default=None)
+    p.add_argument("--invert-edge-filter", action="store_true")
+    p.add_argument("--force-allow-implicit", action="store_true")
+    p.add_argument("-n", "--num-reads", type=int, default=10042)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("-p", "--filter-percentile", type=float, default=0.1)
+    p.add_argument("--filter-threshold", action="append", default=None)
+    p.add_argument("--mod-thresholds", "--mod-threshold", action="append",
+                   default=None)
+    p.add_argument("--no-filtering", action="store_true")
+    p.add_argument("-i", "--interval-size", type=int, default=100_000)
+    p.add_argument("--max-depth", type=int, default=8000)
+    p.add_argument("--mixed-delim", action="store_true")
+    p.add_argument("-t", "--threads", type=int, default=4)
+    p.add_argument("--log-filepath", "--log", default=None)
+    p.add_argument("--suppress-progress", action="store_true")
+    p.set_defaults(func=cmd_pileup_hemi, command_name="pileup-hemi")
 
     # ---- modbam check-tags (modbam_util/subcommands.rs:44-115) ----
     p = sub.add_parser(
@@ -474,6 +711,69 @@ def cmd_update_tags(args) -> int:
     return 0
 
 
+def cmd_extract(args) -> int:
+    import os
+
+    from .caller import ThresholdCaller
+    from .collapse import CollapseMethod
+    from .engines.extract import run_extract
+    from .modcodes import parse_mod_code
+
+    if (
+        args.out_path not in ("-", "stdout")
+        and os.path.exists(args.out_path)
+        and not args.force
+    ):
+        raise SystemExit(f"refusing to overwrite {args.out_path} (use --force)")
+    collapse = []
+    if args.ignore:
+        collapse.append(CollapseMethod("dist", (parse_mod_code(args.ignore),)))
+    edge_filter = (
+        parse_edge_filter(args.edge_filter, args.invert_edge_filter)
+        if args.edge_filter
+        else None
+    )
+    caller = None
+    if args.extract_mode == "calls":
+        ft = parse_filter_thresholds(args.filter_threshold)
+        per_mod = parse_mod_thresholds(args.mod_thresholds) or {}
+        if args.no_filtering:
+            caller = ThresholdCaller.passthrough()
+        elif ft is not None:
+            default = ft.pop("default", 0.0)
+            caller = ThresholdCaller(ft, per_mod, default)
+        else:
+            from .io.cram import open_alignment_reader
+            from .thresholds import estimate_thresholds
+
+            per_base = estimate_thresholds(
+                open_alignment_reader(args.in_bam),
+                num_reads=args.num_reads,
+                sample_frac=args.sampling_frac, seed=args.seed,
+                include_unmapped=True,
+                filter_percentile=args.filter_percentile,
+                collapse=collapse, edge_filter=edge_filter,
+                region=args.region,
+            )
+            caller = ThresholdCaller(per_base, per_mod, 0.0)
+    run_extract(
+        args.in_bam, args.out_path, mode=args.extract_mode,
+        collapse=collapse, edge_filter=edge_filter, kmer_size=args.kmer_size,
+        reference_fasta=args.reference_fasta, caller=caller,
+        pass_only=getattr(args, "pass_only", False),
+        mapped_only=args.mapped_only, region=args.region,
+        allow_non_primary=args.allow_non_primary,
+        include_header=not args.no_headers,
+        bgzf=args.bgzf, threads=args.threads,
+        ignore_implicit=args.ignore_implicit,
+        out_threads=args.out_threads,
+        include_bed=args.include_bed, exclude_bed=args.exclude_bed,
+        motifs=[x for pair in (args.motif or []) for x in pair],
+        cpg=args.cpg,
+        queue_size=args.queue_size,
+    )
+    return 0
+
 
 def _print_errors(stats: dict) -> None:
     if stats.get("errors"):
@@ -639,6 +939,54 @@ def cmd_repair(args) -> int:
     from .engines.repair import run_repair
 
     return run_repair(args)
+
+
+def cmd_pileup_hemi(args) -> int:
+    from .engines.pileup_hemi import run_pileup_hemi
+
+    return run_pileup_hemi(args)
+
+
+def cmd_validate(args) -> int:
+    from .engines.validate import run_validate
+
+    return run_validate(args)
+
+
+def cmd_stats(args) -> int:
+    from .engines.bedmethyl_tools import run_stats
+
+    return run_stats(args)
+
+
+def cmd_localize(args) -> int:
+    from .engines.bedmethyl_tools import run_localize
+
+    return run_localize(args)
+
+
+def cmd_bedmethyl_merge(args) -> int:
+    from .engines.bedmethyl_tools import run_merge
+
+    return run_merge(args)
+
+
+def cmd_bedmethyl_tobigwig(args) -> int:
+    from .engines.bedmethyl_tools import run_tobigwig
+
+    return run_tobigwig(args)
+
+
+def cmd_dmr_pair(args) -> int:
+    from .engines.dmr import run_pair
+
+    return run_pair(args)
+
+
+def cmd_dmr_multi(args) -> int:
+    from .engines.dmr import run_multi
+
+    return run_multi(args)
 
 
 def main(argv=None) -> int:

@@ -1,11 +1,13 @@
 """ctypes bindings to the native C++ runtime (native/modkit_native.cpp).
 
 The port's own trimmed copy of ``modkit_tpu.native``: it holds only what the
-pileup, threshold sampling and the modBAM rewriters use — BAM record parse
-+ MM/ML/MN decode + per-tile pileup event extraction, the host
-threshold/histogram passes, native row formatting, BGZF compression, CRAM
-container decode (``cram_decode_container``) and the adjust/call-mods/
-update-tags span engine (``adjust_stream``) — in multithreaded C++.
+pileup, threshold sampling, the modBAM rewriters, ``extract`` and ``dmr``
+use — BAM record parse + MM/ML/MN decode + per-tile pileup event
+extraction, the host threshold/histogram passes, native row formatting,
+BGZF compression, CRAM container decode (``cram_decode_container``), the
+adjust/call-mods/update-tags span engine (``adjust_stream``), the extract
+TSV stream (``extract_full_stream``) and the columnar bedMethyl parse
+(``parse_bedmethyl_columns``) — in multithreaded C++.
 
 The shared library builds on first use with ``g++`` from the repository's
 ``native/modkit_native.cpp`` into ``modkit_tpu_torch/_build/``, under a file
@@ -89,6 +91,19 @@ class _MkGroupsOut(ctypes.Structure):
         ("total_codes", ctypes.c_int64),
         ("total_probs", ctypes.c_int64),
         ("handle", ctypes.c_void_p),
+    ]
+
+
+class _MkExtractOut(ctypes.Structure):
+    _fields_ = [
+        ("text", ctypes.c_void_p),
+        ("text_len", ctypes.c_int64),
+        ("carry", ctypes.c_void_p),
+        ("carry_len", ctypes.c_int64),
+        ("next_off", ctypes.c_int64),
+        ("n_reads", ctypes.c_int32),
+        ("eof", ctypes.c_int32),
+        ("err_counts", ctypes.c_int64 * 16),
     ]
 
 
@@ -226,6 +241,33 @@ def load():
             ]
             lib.mk_free_buf.restype = None
             lib.mk_free_buf.argtypes = [ctypes.c_void_p]
+            lib.mk_extract_span.restype = ctypes.c_int32
+            lib.mk_extract_span.argtypes = [
+                ctypes.POINTER(ctypes.c_char),
+                ctypes.c_int64,                    # raw, raw_len
+                ctypes.c_int64, ctypes.c_int64,    # start_off, max_comp
+                ctypes.c_char_p, ctypes.c_int64,   # carry, carry_len
+                ctypes.c_int32,                    # parse_header
+                ctypes.POINTER(ctypes.c_char_p), ctypes.c_int32,
+                ctypes.POINTER(ctypes.c_char_p),   # ref_seqs (or None)
+                ctypes.POINTER(ctypes.c_int64),    # ref_lens
+                ctypes.c_int32,                    # kmer_size
+                ctypes.c_int32, ctypes.c_int32,    # mapped_only, allow_np
+                ctypes.c_int32, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int32,                    # edge args
+                ctypes.POINTER(ctypes.c_int64), ctypes.c_int32,  # collapse
+                ctypes.c_int32, ctypes.c_int32,    # calls_mode, pass_only
+                ctypes.c_int32,                    # ignore_implicit
+                ctypes.POINTER(ctypes.c_int64),    # pm_codes
+                ctypes.POINTER(ctypes.c_double),   # pm_vals
+                ctypes.c_int32,                    # n_pm
+                ctypes.POINTER(ctypes.c_double),   # fallback_mod4
+                ctypes.POINTER(ctypes.c_double),   # can_thr4
+                ctypes.c_int32,                    # n_threads
+                ctypes.POINTER(_MkExtractOut),
+            ]
+            lib.mk_free_extract.restype = None
+            lib.mk_free_extract.argtypes = [ctypes.POINTER(_MkExtractOut)]
             lib.mk_sample_confidences.restype = ctypes.c_int32
             lib.mk_sample_confidences.argtypes = [
                 ctypes.POINTER(ctypes.c_char_p),   # recs
@@ -347,6 +389,15 @@ def load():
                 ctypes.POINTER(ctypes.c_void_p),   # out_names
                 ctypes.POINTER(ctypes.c_int64),    # out_names_len
                 ctypes.POINTER(ctypes.c_int64),    # out_consumed
+            ]
+            lib.mk_parse_bedmethyl.restype = ctypes.c_int32
+            lib.mk_parse_bedmethyl.argtypes = [
+                ctypes.c_char_p, ctypes.c_int64,
+                ctypes.c_char_p, ctypes.c_int32,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int64), ctypes.c_int32,
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+                ctypes.POINTER(ctypes.c_int64),
             ]
             _lib = lib
         except (OSError, RuntimeError):
@@ -1209,3 +1260,231 @@ def cram_decode_container(
         recs.append(raw[p + 4 : p + 4 + n])
         p += 4 + n
     return recs
+
+
+def parse_bedmethyl_columns(
+    blob: bytes, chrom: str, qstart: int, qend: int, min_valid: int,
+    allowed_codes,
+):
+    """Columnar bedMethyl parse (native mk_parse_bedmethyl): returns an
+    [n, 6] int64 array of (start, code, strand01, n_mod, valid, canon), or
+    None when the native library is unavailable."""
+    lib = load()
+    if lib is None:
+        return None
+    codes = np.asarray(
+        [_encode_mod_code(c) for c in allowed_codes], dtype=np.int64
+    )
+    out_blob = ctypes.POINTER(ctypes.c_int64)()
+    out_n = ctypes.c_int64()
+    rc = lib.mk_parse_bedmethyl(
+        blob, len(blob), chrom.encode(), len(chrom.encode()),
+        qstart, qend, min_valid,
+        codes.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(codes),
+        ctypes.byref(out_blob), ctypes.byref(out_n),
+    )
+    if rc != 0:
+        return None
+    n = out_n.value
+    if n == 0:
+        return np.zeros((0, 6), dtype=np.int64)
+    try:
+        arr = np.ctypeslib.as_array(out_blob, shape=(n, 6)).copy()
+    finally:
+        lib.mk_free_buf(
+            ctypes.cast(out_blob, ctypes.POINTER(ctypes.c_char))
+        )
+    return arr
+
+
+def _encode_mod_code(code) -> int:
+    """Code convention of the native layer: char -> -ord, ChEBI int -> +v."""
+    if isinstance(code, int):
+        return int(code)
+    return -ord(code)
+
+
+def extract_full_stream(
+    raw: bytes,
+    tid_names: list,
+    *,
+    ref_seqs: dict | None = None,
+    kmer_size: int = 5,
+    mapped_only: bool = False,
+    allow_non_primary: bool = False,
+    edge_filter=None,
+    collapse=None,
+    caller=None,
+    pass_only: bool = False,
+    ignore_implicit: bool = False,
+    n_threads: int | None = None,
+    span_comp_bytes: int = 8 << 20,
+    start_off: int = 0,
+    end_off: int | None = None,
+    init_carry: bytes = b"",
+    parse_header: bool = True,
+    tail_data: bytes = b"",
+):
+    """Stream `extract full`/`extract calls` TSV row blocks from the
+    compressed BAM bytes.
+
+    ``start_off``/``end_off`` bound the compressed walk to a block-aligned
+    window (multi-host sharding: each rank owns a record-aligned byte
+    range); ``init_carry`` seeds the decompressed prefix of the first
+    record and ``tail_data`` appends the final partial-block bytes, so a
+    rank processes exactly its [voffset_lo, voffset_hi) record slice.
+
+    Yields (text_bytes, n_reads, errors_dict) per ~span_comp_bytes span of
+    the compressed stream; rows are byte-identical to the Python
+    engines.extract full_rows / calls_rows paths
+    (tests/test_native_extract.py). ``ref_seqs`` maps contig NAME -> uint8
+    numpy sequence (adds ref_kmer). A non-None ``caller``
+    (ThresholdCaller) switches to calls mode.
+    """
+    lib = load()
+    if lib is None:
+        return
+    n_tids = len(tid_names)
+    NameArr = ctypes.c_char_p * max(n_tids, 1)
+    c_names = NameArr(*[str(n).encode() for n in tid_names])
+    c_refs = None
+    c_lens = None
+    keep_refs = []
+    if ref_seqs is not None:
+        c_refs = NameArr()
+        lens = np.zeros(max(n_tids, 1), dtype=np.int64)
+        for i, name in enumerate(tid_names):
+            seq = ref_seqs.get(str(name))
+            if seq is None:
+                continue
+            arr = np.ascontiguousarray(seq, dtype=np.uint8)
+            keep_refs.append(arr)
+            c_refs[i] = ctypes.cast(
+                arr.ctypes.data_as(ctypes.c_void_p), ctypes.c_char_p
+            )
+            lens[i] = len(arr)
+        c_lens = lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+    blob = encode_collapse(collapse)
+    c_blob = blob.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+    has_edge = edge_filter is not None
+    nt = n_threads if n_threads is not None else min(os.cpu_count() or 1, 8)
+
+    # calls mode: ThresholdCaller serialized as (per_mod pairs, resolved
+    # fallback chain per base, resolved canonical thresholds) in f64 so
+    # C++ comparisons promote exactly like np.float32-vs-float Python
+    calls_mode = caller is not None
+    pm_codes = np.zeros(1, dtype=np.int64)
+    pm_vals = np.zeros(1, dtype=np.float64)
+    fb4 = np.zeros(4, dtype=np.float64)
+    cn4 = np.zeros(4, dtype=np.float64)
+    n_pm = 0
+    if calls_mode:
+        from .modcodes import DNA_BASES, any_mod_code
+
+        items = list(caller.per_mod.items())
+        n_pm = len(items)
+        pm_codes = np.array(
+            [encode_code(c) for c, _ in items] or [0], dtype=np.int64
+        )
+        pm_vals = np.array(
+            [float(v) for _, v in items] or [0.0], dtype=np.float64
+        )
+        for b, base in enumerate(DNA_BASES):
+            t = caller.per_mod.get(any_mod_code(base))
+            if t is None:
+                t = caller.per_base.get(base)
+            if t is None:
+                t = caller.default_threshold
+            fb4[b] = float(t)
+            cn4[b] = caller.canonical_threshold(base)
+
+    off = start_off
+    end = len(raw) if end_off is None else end_off
+    carry = init_carry
+    first = parse_header
+    while True:
+        out = _MkExtractOut()
+        rc = lib.mk_extract_span(
+            as_cbuf(raw), end, off, span_comp_bytes, carry, len(carry),
+            1 if first else 0, c_names, n_tids, c_refs, c_lens,
+            kmer_size, 1 if mapped_only else 0,
+            1 if allow_non_primary else 0,
+            1 if has_edge else 0,
+            edge_filter.start_trim if has_edge else 0,
+            edge_filter.end_trim if has_edge else 0,
+            1 if (has_edge and edge_filter.inverted) else 0,
+            c_blob, len(blob),
+            1 if calls_mode else 0, 1 if pass_only else 0,
+            1 if ignore_implicit else 0,
+            pm_codes.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            pm_vals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            n_pm,
+            fb4.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            cn4.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            nt, ctypes.byref(out),
+        )
+        if rc != 0:
+            raise RuntimeError(f"mk_extract_span failed rc={rc}")
+        try:
+            text = (
+                ctypes.string_at(out.text, out.text_len)
+                if out.text_len
+                else b""
+            )
+            carry = (
+                ctypes.string_at(out.carry, out.carry_len)
+                if out.carry_len
+                else b""
+            )
+            errors = {
+                ERR_KINDS[i]: int(out.err_counts[i])
+                for i in range(len(ERR_KINDS))
+                if out.err_counts[i]
+            }
+            yield text, int(out.n_reads), errors
+            eof = bool(out.eof)
+            off = out.next_off
+        finally:
+            lib.mk_free_extract(ctypes.byref(out))
+        first = False
+        if eof:
+            break
+    if tail_data or (end_off is not None and carry):
+        # final partial-block records past the shard's last block boundary
+        out = _MkExtractOut()
+        final = carry + tail_data
+        rc = lib.mk_extract_span(
+            b"", 0, 0, 0, final, len(final), 0,
+            c_names, n_tids, c_refs, c_lens,
+            kmer_size, 1 if mapped_only else 0,
+            1 if allow_non_primary else 0,
+            1 if has_edge else 0,
+            edge_filter.start_trim if has_edge else 0,
+            edge_filter.end_trim if has_edge else 0,
+            1 if (has_edge and edge_filter.inverted) else 0,
+            c_blob, len(blob),
+            1 if calls_mode else 0, 1 if pass_only else 0,
+            1 if ignore_implicit else 0,
+            pm_codes.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            pm_vals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            n_pm,
+            fb4.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            cn4.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            nt, ctypes.byref(out),
+        )
+        if rc != 0:
+            raise RuntimeError(f"mk_extract_span tail failed rc={rc}")
+        try:
+            text = (
+                ctypes.string_at(out.text, out.text_len)
+                if out.text_len
+                else b""
+            )
+            errors = {
+                ERR_KINDS[i]: int(out.err_counts[i])
+                for i in range(len(ERR_KINDS))
+                if out.err_counts[i]
+            }
+            yield text, int(out.n_reads), errors
+        finally:
+            lib.mk_free_extract(ctypes.byref(out))

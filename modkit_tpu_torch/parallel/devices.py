@@ -4,8 +4,10 @@ Single host: genome tiles dispatch round-robin across the local CUDA
 devices (the tiles axis of SURVEY §2.5 — the reference's rayon interval
 fan-out, pileup/mod.rs:684, mapped onto cards instead of threads). The run's
 device is chosen once at the entry point (``resolve_device``) and passed
-down; nothing here holds a current device. Multi-host runs and the shard
-merge arrive in a later slice of the port.
+down; nothing here holds a current device. The shard helpers
+(``process_info``, ``sync_processes``, ``shard_path``, ``merge_shards``)
+work over a ``torch.distributed`` process group; starting a multi-host run
+(``maybe_init_distributed``) arrives in a later slice of the port.
 """
 
 from __future__ import annotations
@@ -151,6 +153,36 @@ def maybe_init_distributed() -> bool:
             "(MODKIT_TPU_COORD is set)"
         )
     return False
+
+
+def process_info() -> tuple[int, int]:
+    """(process_index, process_count): (0, 1) for a single-process run (no
+    MODKIT_TPU_COORD); the rank and world size of the initialized
+    ``torch.distributed`` process group otherwise."""
+    if not os.environ.get("MODKIT_TPU_COORD"):
+        return 0, 1
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "MODKIT_TPU_COORD is set but no torch.distributed process group "
+            "is initialized"
+        )
+    return dist.get_rank(), dist.get_world_size()
+
+
+def sync_processes(tag: str) -> None:
+    """Barrier across the run's processes (the counterpart of
+    ``multihost_utils.sync_global_devices``); ``tag`` names the sync point
+    in the error. Raises when no process group is initialized."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"sync_processes({tag!r}): no torch.distributed process group "
+            "is initialized"
+        )
+    dist.barrier()
 
 
 def shard_path(out: str, process_index: int) -> str:

@@ -47,14 +47,22 @@ def percentile_linear_interp(xs: np.ndarray, q: float) -> np.float32:
     return y0 * (np.float32(1.0) - g) + y1 * g
 
 
+# torch.sort calls run on a CUDA device by the forced-device percentile
+# (counted like the kernels' launches; chip_smoke.py sets it to 0 before a
+# path and reads it after)
+CUDA_SORTS = 0
+
+
 def _device_sorted(xs: np.ndarray, device):
     """torch.sort of the confidence vector on the run's device; returns the
     sorted values as a tensor on that device."""
     import torch
 
-    return torch.sort(
-        torch.from_numpy(xs.astype(np.float32)).to(device)
-    ).values
+    global CUDA_SORTS
+    x = torch.from_numpy(xs.astype(np.float32)).to(device)
+    if x.is_cuda:
+        CUDA_SORTS += 1
+    return torch.sort(x).values
 
 
 def percentile_linear_interp_device(
@@ -518,9 +526,11 @@ def thresholds_from_sampled(
 def thresholds_from_confidences(
     confs: dict, filter_percentile: float, device=None
 ) -> dict[str, float]:
-    """Per-base filter percentile; host numpy sort by default, torch.sort on
-    the run's ``device`` under MODKIT_TPU_OFFLOAD=always — both
-    bit-identical.
+    """Per-base filter percentile; host numpy sort by default, torch.sort
+    under MODKIT_TPU_OFFLOAD=always — both bit-identical. The forced sort
+    runs on ``device`` when the caller passes one, else on ``"cuda"``
+    (through ``resolve_device``: without a card it raises, as every entry
+    point of the port does; it never falls back to the host sort).
 
     The sort is NOT routed through the adaptive counting policy: the host
     sort of the few-Mevent confidence vector is cheap next to the
@@ -528,10 +538,11 @@ def thresholds_from_confidences(
     device is forced."""
     import os
 
-    force_device = (
-        device is not None
-        and os.environ.get("MODKIT_TPU_OFFLOAD") == "always"
-    )
+    force_device = os.environ.get("MODKIT_TPU_OFFLOAD") == "always"
+    if force_device and device is None:
+        from .parallel.devices import resolve_device
+
+        device = resolve_device("cuda")
     out = {}
     for b, v in confs.items():
         if len(v) >= 2 and force_device:
@@ -563,7 +574,8 @@ def estimate_thresholds(
 ) -> dict[str, float]:
     """Per-base thresholds = filter-percentile of sampled call confidences
     (thresholds.rs:82 calc_thresholds_per_base). ``device`` is where the
-    forced-device percentile sorts (see thresholds_from_confidences)."""
+    forced-device percentile sorts, ``"cuda"`` when None (see
+    thresholds_from_confidences)."""
     if sample_frac is not None:
         num_reads = None
     confs = sample_reads(

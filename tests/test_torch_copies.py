@@ -19,10 +19,13 @@ ORIGINAL = os.path.join(REPO, "modkit_tpu")
 
 COPIES = (
     "__main__.py",
+    "bedmethyl.py",
     "caller.py",
     "charts.py",
     "collapse.py",
     "errors.py",
+    "genome_positions.py",
+    "hmm.py",
     "logging.py",
     "modcodes.py",
     "modtags.py",
@@ -32,13 +35,21 @@ COPIES = (
     "writers.py",
     "engines/__init__.py",
     "engines/adjust.py",
+    "engines/bedmethyl_tools.py",
+    "engines/dmr.py",
     "engines/modbam_util.py",
+    "engines/pileup_hemi.py",
     "engines/repair.py",
+    "engines/validate.py",
     "io/__init__.py",
     "io/bam.py",
     "io/bgzf.py",
+    "io/bigwig.py",
     "io/cram.py",
     "io/fasta.py",
+    "io/tabix.py",
+    "ops/beta_diff.py",
+    "ops/llk.py",
     "pileup/__init__.py",
     "pileup/events.py",
     "utils/synth.py",
@@ -48,12 +59,17 @@ COPIES = (
 PORTS = {
     "__init__.py": "the package docstring names the port",
     "cli.py": "only the ported subcommands; pileup takes --device",
+    "engines/dmr_single_site.py": "the shard barrier is a torch.distributed "
+                                  "barrier (sync_processes), not jax's",
+    "engines/extract.py": "the shard barrier is a torch.distributed "
+                          "barrier (sync_processes), not jax's",
     "thresholds.py": "the forced-device percentile sorts with torch.sort "
                      "on the run's device instead of a jitted jnp.sort",
     "ops/__init__.py": "the docstring names the CUDA kernels",
     "parallel/__init__.py": "the docstring: device selection, not a mesh",
-    "parallel/devices.py": "torch devices, the device rule; no mesh or "
-                           "multi-host runs yet",
+    "parallel/devices.py": "torch devices, the device rule; process_info "
+                           "and sync_processes over torch.distributed; no "
+                           "mesh or multi-host runs yet",
     "pileup/engine.py": "the kernels' wrappers, CUDA streams and pinned "
                         "copies instead of jitted calls",
     "pileup/runner.py": "the run's device, torch.profiler; multi-host "

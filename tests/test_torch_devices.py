@@ -58,3 +58,34 @@ def test_merge_shards_matches_modkit_tpu(tmp_path):
             merged.append(fh.read())
     assert merged[0] == merged[1]
     assert merged[1].startswith(b"t0\nt1\nt3\nxxx")
+
+
+def test_process_info_of_a_single_process_matches_modkit_tpu(monkeypatch):
+    monkeypatch.delenv("MODKIT_TPU_COORD", raising=False)
+    assert port_devices.process_info() == ref_devices.process_info() == (0, 1)
+
+
+def test_process_info_and_sync_need_a_process_group(monkeypatch):
+    monkeypatch.setenv("MODKIT_TPU_COORD", "localhost:1234")
+    with pytest.raises(RuntimeError, match="no torch.distributed"):
+        port_devices.process_info()
+    with pytest.raises(RuntimeError, match="modkit_extract_shards"):
+        port_devices.sync_processes("modkit_extract_shards")
+
+
+def test_process_info_and_sync_over_a_gloo_group(monkeypatch):
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        monkeypatch.setenv("MODKIT_TPU_COORD", f"localhost:{port}")
+        assert port_devices.process_info() == (0, 1)
+        port_devices.sync_processes("modkit_dmr_single_site_shards")
+    finally:
+        dist.destroy_process_group()

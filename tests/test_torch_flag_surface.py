@@ -16,7 +16,10 @@ from modkit_tpu_torch.cli import build_parser as port_parser
 SUBCOMMANDS = [
     ("pileup",), ("summary",), ("sample-probs",), ("adjust-mods",),
     ("call-mods",), ("update-tags",), ("repair",), ("modbam", "check-tags"),
-    ("modbam", "sample-reads"),
+    ("modbam", "sample-reads"), ("extract", "full"), ("extract", "calls"),
+    ("dmr", "pair"), ("dmr", "multi"), ("stats",), ("localize",),
+    ("bedmethyl", "merge"), ("bedmethyl", "tobigwig"), ("validate",),
+    ("pileup-hemi",),
 ]
 # flags of the port's subparser that modkit_tpu's does not have
 PORT_ONLY = {("pileup",): {"--device"}}
@@ -55,4 +58,5 @@ def test_subcommand_has_modkit_tpu_flags(path):
 def test_the_port_has_exactly_these_subcommands():
     sub = next(a for a in port_parser()._actions
                if isinstance(a, argparse._SubParsersAction))
-    assert set(sub.choices) == {p[0] for p in SUBCOMMANDS} | {"mb"}
+    assert set(sub.choices) == {p[0] for p in SUBCOMMANDS} | {"mb",
+                                                               "localise"}

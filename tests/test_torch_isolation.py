@@ -4,8 +4,11 @@
   import of ``jax`` or ``modkit_tpu`` (whole names: ``modkit_tpu_torch`` is
   the port itself).
 - The port's CLI runs in a process where both are blocked, and its output
-  is byte-equal (``cmp``) to modkit_tpu's on the same synthetic modBAM;
-  so does the count-kernel lab's entry point, ``tools/kernel_lab.py``.
+  is byte-equal (``cmp``) to modkit_tpu's on the same synthetic modBAM:
+  ``pileup``, and the downstream ``extract calls`` (native stream, default
+  threshold estimate) and ``dmr pair`` (over regions and per site, on the
+  port's own bedMethyls); so does the count-kernel lab's entry point,
+  ``tools/kernel_lab.py``.
 - Without a CUDA device, an entry point that did not ask for the CPU
   raises instead of running there; multi-host runs, which arrive in a
   later slice, are refused. (CRAM input runs: tests/test_torch_cram.py.)
@@ -20,11 +23,15 @@ import sys
 import pytest
 import torch
 
+from modkit_tpu.cli import main as ref_main
 from modkit_tpu.pileup.runner import PileupConfig as RefConfig
 from modkit_tpu.pileup.runner import run_pileup as ref_run
 from modkit_tpu.utils.synth import make_synthetic_modbam
 from modkit_tpu_torch.cli import build_parser
+from modkit_tpu_torch.cli import main as port_main
+from modkit_tpu_torch.io.bam import build_bai
 from modkit_tpu_torch.pileup.runner import PileupConfig, run_pileup
+from tests.test_torch_dmr import _run, port_bedmethyl
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "modkit_tpu")
@@ -88,6 +95,50 @@ def test_cli_runs_with_jax_and_modkit_tpu_blocked(tmp_path, bam):
     )
     assert proc.returncode == 0, proc.stderr
     assert filecmp.cmp(ref_out, port_out, shallow=False)
+
+
+def test_extract_and_dmr_run_with_jax_and_modkit_tpu_blocked(tmp_path):
+    a_bam, fa = str(tmp_path / "a.bam"), str(tmp_path / "ref.fa")
+    make_synthetic_modbam(a_bam, n_reads=120, read_len=1500, coverage=15.0,
+                          seed=22, fasta_out=fa)
+    b_bam = str(tmp_path / "b.bam")
+    assert _run(port_main, ["adjust-mods", a_bam, b_bam, "--convert", "h",
+                            "m"])[0] == 0
+    build_bai(b_bam)
+    a, b = (port_bedmethyl(x, str(tmp_path / f"{n}.bed"))
+            for x, n in ((a_bam, "a"), (b_bam, "b")))
+    roi = str(tmp_path / "roi.bed")
+    with open(roi, "w") as fh:
+        fh.writelines(f"synth1\t{s}\t{s + 800}\tr{s}\n"
+                      for s in range(0, 11_000, 1000))
+    templates = (
+        ["extract", "calls", a_bam, "{out}.tsv", "--seed", "3"],
+        ["dmr", "pair", "-a", a, "-b", b, "-r", roi, "--ref", fa, "--base",
+         "C", "-o", "{out}.roi.bed"],
+        ["dmr", "pair", "-a", a, "-b", b, "--ref", fa, "--base", "C", "-o",
+         "{out}.sites.bed"],
+    )
+    ref_out, port_out = str(tmp_path / "ref"), str(tmp_path / "port")
+    for t in templates:
+        assert _run(ref_main, [x.format(out=ref_out) for x in t])[0] == 0
+    calls = [[x.format(out=port_out) for x in t] for t in templates]
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['modkit_tpu'] = None\n"
+        "from modkit_tpu_torch.cli import main\n"
+        f"for argv in {calls!r}:\n"
+        "    assert main(argv) == 0\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    for suffix in (".tsv", ".roi.bed", ".sites.bed"):
+        assert os.path.getsize(port_out + suffix) > 0
+        assert filecmp.cmp(ref_out + suffix, port_out + suffix,
+                           shallow=False), suffix
 
 
 def test_kernel_lab_runs_with_jax_and_modkit_tpu_blocked():
