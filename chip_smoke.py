@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive modkit_tpu_torch's pileup on one NVIDIA GPU and check its kernels.
+"""Drive modkit_tpu_torch on one NVIDIA GPU and check its kernels.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
@@ -58,9 +58,9 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
     byte-equal, kernel B launched once per tile with events, kernel A
     never on the CRAM;
 11. ``run_pileup_counts`` (the full K = 6 + 4(M+1) count of modcall,
-    nocall and delete events, a torch op) on ``cuda`` against the CPU,
-    exactly, at P = 100 000, M = 2, on the bench tile's events with
-    out-of-range ones among them;
+    nocall and delete events: kernel A's f32 entry, then a bincount) on
+    ``cuda`` against the CPU, exactly, at P = 100 000, M = 2, on the bench
+    tile's events with out-of-range ones among them, with one f32 launch;
 12. downstream of pileup, through the port's CLI: sample A is phase 10's
     10 000-read modBAM, sample B is ``adjust-mods --convert h m`` of it;
     the pileup of each on ``cuda`` and under MODKIT_TPU_OFFLOAD=never,
@@ -74,7 +74,21 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
     ``pileup-hemi --cpg`` on a 2 000-read two-strand modBAM
     (``utils/synth_duplex.py``), each under MODKIT_TPU_OFFLOAD=always (the
     estimate's sort on the card, counted by ``thresholds.CUDA_SORTS``) and
-    ``never`` (none), byte-equal.
+    ``never`` (none), byte-equal;
+13. the parallel paths and the last subcommands, on phase 12's sample A:
+    ``entropy --cpg`` with the default estimate under
+    MODKIT_TPU_OFFLOAD=always and ``never`` (no sort on the card in
+    either: entropy estimates on the host), byte-equal; ``motif search
+    --skip-search`` and ``motif evaluate`` on A's card and host
+    bedMethyls (two processes side by side), byte-equal, and ``motif bed
+    CG`` over its FASTA; ``run_sharded_pileup`` on a 4 x 2 grid of
+    ``cuda:0`` over phase 11's events in 8 shards, equal to the CPU grid
+    with 8 launches of kernel A's f32 entry; the pileup of A with
+    ``compute_devices`` giving ``cuda:0`` once and 4 times, byte-equal,
+    kernel A once per tile with events; and two processes on the card in
+    a gloo group (MODKIT_TPU_COORD on localhost) running the shard-mode
+    pileup and entropy of A, each byte-equal to one process's, their
+    kernel A launches summing to the tiles with events.
 
 Before phase 3 it prints the card's measured peaks (``tools/true_bench.py``:
 HBM read and copy rates, bf16 ``torch.matmul`` rate) beside the data-sheet
@@ -115,6 +129,8 @@ DMR_REGIONS, DMR_REGION_LEN = 500, 2_000
 HEMI_READS, HEMI_READ_LEN, HEMI_INTERVAL = 2_000, 1_000, 10_000
 TILE = 100_000
 COUNT_POSITIONS = 100_000
+# what a kernels row takes from a phase's measurement
+KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 
 
 def log(msg: str) -> None:
@@ -154,7 +170,8 @@ def middle_tile(reader):
 
 
 def phase_state(tile, dev) -> dict:
-    """Kernel A against its plain version; returns its kernels entry."""
+    """Kernel A against its plain version; returns the kernels entries of
+    its quals and f32 entries at the bench tile's M."""
     import numpy as np
     import torch
 
@@ -164,7 +181,7 @@ def phase_state(tile, dev) -> dict:
     rng = np.random.default_rng(7)
     n_main = tile.n_events
     worst = 0
-    entry = None
+    entries = {}
     for m in (1, 2, 4, 8):
         # n_main - 7: N % 16 != 0, so planes 1.. start unaligned at every M
         for n in (n_main, 1, 127, 128 * 1000 + 3, n_main - 7):
@@ -217,11 +234,13 @@ def phase_state(tile, dev) -> dict:
                 log(f"state {entry_name} M={m} N={n}: kernel {ms:.5f} ms "
                     f"(per call {call_ms:.5f} ms), plain {plain_ms:.5f} ms, "
                     f"bound {b_ms:.5f} ms ({b_by}), share {b_ms / ms:.3f}")
-                if entry_name == "quals_t" and m == tile.m:
-                    entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=b_by, n=n, m=m)
-    entry["max_abs_err"] = worst
-    return entry
+                if m == tile.m:
+                    entries[entry_name] = dict(
+                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, n=n, m=m)
+    for entry in entries.values():
+        entry["max_abs_err"] = worst
+    return entries
 
 
 def phase_counts(tile, dev) -> dict:
@@ -634,13 +653,11 @@ def phase_cram(work: str) -> int:
     return launches
 
 
-def phase_pileup_counts(tile, dev) -> None:
-    """``run_pileup_counts`` on the card against the CPU, exactly, on the
-    bench tile's events at P = 100 000, M = 2, with random event types and
-    some events at rpos -1 and P."""
+def count_events(tile):
+    """The bench tile's events for the full count (phases 11 and 13): at
+    P = 100 000, M = 2, with random event types and some events at rpos -1
+    and P; (rpos, strand, base, ev_type, probs, thr_mod, thr_can)."""
     import numpy as np
-
-    from modkit_tpu_torch.ops import counts
 
     rng = np.random.default_rng(17)
     rpos, strand, base, probs = tile.export_events()
@@ -651,18 +668,34 @@ def phase_pileup_counts(tile, dev) -> None:
     ev_type = rng.integers(0, 3, n).astype(np.int32)
     thr_mod = rng.random((m, 4), dtype=np.float32) * np.float32(0.5)
     thr_can = rng.random(4, dtype=np.float32) * np.float32(0.8)
-    args = (rpos, strand, base, ev_type, probs, thr_mod, thr_can,
-            COUNT_POSITIONS)
+    return rpos, strand, base, ev_type, probs, thr_mod, thr_can
+
+
+def phase_pileup_counts(tile, dev) -> int:
+    """``run_pileup_counts`` on the card against the CPU, exactly, on
+    ``count_events``; its call is kernel A's f32 entry, launched once.
+    Returns that launch count."""
+    import numpy as np
+
+    from modkit_tpu_torch.ops import counts
+
+    args = (*count_events(tile), COUNT_POSITIONS)
+    n, m = args[4].shape
+    reset_launches()
     t0 = time.perf_counter()
     got = counts.run_pileup_counts(*args, device=dev)
     t1 = time.perf_counter()
+    launches = read_launches()
+    require(launches == (0, 1, 0),
+            f"run_pileup_counts: launches {launches}, not one f32 launch")
     want = counts.run_pileup_counts(*args, device="cpu")
     t2 = time.perf_counter()
     require(np.array_equal(got, want), "run_pileup_counts: cuda != cpu")
     log(f"run_pileup_counts M={m} N={n} P={COUNT_POSITIONS}: cuda == cpu "
-        f"({int(got.sum())} events counted, shape {got.shape}); host clock "
-        f"cuda {(t1 - t0) * 1e3:.1f} ms with copies, cpu "
-        f"{(t2 - t1) * 1e3:.1f} ms")
+        f"({int(got.sum())} events counted, shape {got.shape}), kernel A's "
+        f"f32 entry launched once; host clock cuda {(t1 - t0) * 1e3:.1f} ms "
+        f"with copies, cpu {(t2 - t1) * 1e3:.1f} ms")
+    return launches[1]
 
 
 def cli(argv: list) -> float:
@@ -900,6 +933,226 @@ def phase_downstream(work: str, a_bam: str, fa: str, small_bam: str,
         for path in outs.values():
             os.remove(path)
     log(f"downstream phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
+
+
+# phase 13: the sharded count's grid on the one card, the devices of the
+# 1-vs-N pileup, and the shard runs' processes
+MESH_TILES, MESH_READERS = 4, 2
+N_DEVICES = 4
+SHARD_PROCESSES = 2
+
+# one rank of phase 13's shard runs: the port's CLI, then kernel A's
+# launches in this process
+_SHARD_RANK = (
+    "import json, sys\n"
+    "from modkit_tpu_torch.cli import main\n"
+    "from modkit_tpu_torch.ops import state\n"
+    "for argv in json.loads(sys.argv[1]):\n"
+    "    assert main(argv) == 0, argv[:2]\n"
+    "print('LAUNCHES ' + json.dumps([state.STATE_KERNEL_LAUNCHES,\n"
+    "                                state.STATE_F32_KERNEL_LAUNCHES]))\n"
+)
+
+
+def phase_entropy_and_motifs(work: str, a_bam: str, fa: str) -> str:
+    """Phase 13, steps 1-2: ``entropy --cpg`` with the default estimate
+    under MODKIT_TPU_OFFLOAD=always and never, and the motif commands on
+    the card's and the host's bedMethyls of A; returns the entropy
+    bedgraph."""
+    import contextlib
+    import re
+
+    outs, secs, sorts = {}, {}, {}
+    for offload in ("always", "never"):
+        outs[offload] = os.path.join(work, f"entropy.{offload}.bedgraph")
+        os.environ["MODKIT_TPU_OFFLOAD"] = offload
+        reset_launches()
+        try:
+            secs[offload] = cli(["entropy", "-s", a_bam, "--ref", fa,
+                                 "--cpg", "-o", outs[offload], "--force",
+                                 "--suppress-progress"])
+        finally:
+            os.environ["MODKIT_TPU_OFFLOAD"] = "always"
+        sorts[offload] = read_sorts()
+        require(read_launches() == (0, 0, 0), "entropy launched a kernel")
+    # modkit_tpu's entropy estimates on the host (np.sort of the sampled
+    # confidences, engines/entropy.py), whatever the offload mode
+    require(sorts == {"always": 0, "never": 0},
+            f"entropy: sorts on the card {sorts}")
+    same_files(outs["always"], outs["never"], "entropy")
+    rows = count_lines(outs["always"])
+    log(f"entropy --cpg: {rows} windows, always {secs['always']:.2f} s "
+        f"({rows / secs['always']:.1f} windows/s), never "
+        f"{secs['never']:.2f} s ({rows / secs['never']:.1f} windows/s); no "
+        "sort on the card in either (the estimate sorts on the host, as "
+        "modkit_tpu's does); byte-equal")
+
+    steps = {}
+    for route in ("cuda", "host"):
+        bed = os.path.join(work, f"down_a.{route}.bed")
+        o = os.path.join(work, f"motif.{route}")
+        steps[route] = [
+            ("motif search --skip-search",
+             ["motif", "search", "-i", bed, "-r", fa, "-o", o + ".search",
+              "--skip-search", "--suppress-progress"], o + ".search"),
+            ("motif evaluate",
+             ["motif", "evaluate", "-i", bed, "-r", fa, "--out",
+              o + ".evaluate", "--known-motif", "CG", "0", "m",
+              "--known-motif", "CG", "0", "h", "--suppress-progress"],
+             o + ".evaluate"),
+        ]
+    times = run_steps_side_by_side(work, steps)
+    for (name, _, out_c), (_, _, out_h) in zip(steps["cuda"], steps["host"]):
+        same_files(out_c, out_h, name)
+        log(f"{name}: cuda bedMethyl {times['cuda'][name]:.2f} s, host "
+            f"bedMethyl {times['host'][name]:.2f} s (2 processes side by "
+            f"side), {count_lines(out_c) - 1} motifs; byte-equal")
+    bed = os.path.join(work, "motif_bed.bed")
+    with open(bed, "w") as fh, contextlib.redirect_stdout(fh):
+        t = cli(["motif", "bed", fa, "CG", "0"])
+    with open(fa) as fh:
+        seq = "".join(line.strip() for line in fh if not line.startswith(">"))
+    hits = len(re.findall("(?=CG)", seq.upper()))
+    require(count_lines(bed) == 2 * hits > 0,
+            f"motif bed: {count_lines(bed)} rows for {hits} CpGs")
+    log(f"motif bed CG: {2 * hits} rows (both strands of {hits} CpGs) in "
+        f"{t:.2f} s")
+    return outs["always"]
+
+
+def phase_sharded(tile, dev) -> dict:
+    """Phase 13, step 3: ``run_sharded_pileup`` on a 4 x 2 grid of the one
+    card over ``count_events`` split into 8 shards, against the CPU grid,
+    exactly; one kernel A f32 launch per shard. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from modkit_tpu_torch.parallel import sharded_pileup as sp
+    from modkit_tpu_torch.tools.true_bench import cuda_time_ms
+
+    rpos, strand, base, ev_type, probs, thr_mod, thr_can = count_events(tile)
+    t, r = MESH_TILES, MESH_READERS
+    n, m = probs.shape
+    e = -(-n // (t * r))
+    pad = t * r * e - n
+
+    def shards(a, fill):
+        a = np.concatenate([a, np.full((pad,) + a.shape[1:], fill, a.dtype)])
+        return a.reshape((t, r, e) + a.shape[1:])
+
+    valid = np.arange(t * r * e) < n
+    args = (shards(rpos, 0), shards(strand, 0), shards(base, 0),
+            shards(ev_type, 0), shards(probs, -1.0),
+            valid.reshape(t, r, e), thr_mod, thr_can, COUNT_POSITIONS)
+    mesh = sp.make_mesh(t, r, [dev] * (t * r))
+    reset_launches()
+    t0 = time.perf_counter()
+    got = sp.run_sharded_pileup(mesh, *args)
+    t1 = time.perf_counter()
+    launches = read_launches()
+    require(launches == (0, t * r, 0),
+            f"sharded pileup: launches {launches}, not {t * r} f32 ones")
+    want = sp.run_sharded_pileup(sp.make_mesh(t, r, ["cpu"] * (t * r)),
+                                 *args)
+    require(np.array_equal(got, want), "sharded pileup: cuda != cpu")
+    step = sp.make_sharded_pileup_step(mesh, COUNT_POSITIONS, m)
+    placed = [[tuple(torch.from_numpy(np.ascontiguousarray(a[i, j])).to(dev)
+                     for a in args[:6]) for j in range(r)] for i in range(t)]
+    tm, tc = torch.from_numpy(thr_mod), torch.from_numpy(thr_can)
+    ms, call_ms = cuda_time_ms(lambda: step(placed, tm, tc), 20)
+    log(f"sharded pileup {t} x {r} grid of {dev} over N={n} events ({e} per "
+        f"shard, M={m}, P={COUNT_POSITIONS}): == cpu grid "
+        f"({int(got.sum())} events counted, shape {got.shape}); kernel A's "
+        f"f32 entry launched {launches[1]} times; the step {ms:.3f} ms "
+        f"(CUDA events; per call {call_ms:.3f} ms), with uploads and the "
+        f"copy back {(t1 - t0) * 1e3:.1f} ms (host clock)")
+    return dict(launches=launches[1], ms=ms, call_ms=call_ms)
+
+
+def phase_one_vs_n(work: str, a_bam: str, card) -> None:
+    """Phase 13, step 4: the pileup of A with ``compute_devices`` giving 1
+    and then N_DEVICES entries of ``card`` (``cuda:0``: tiles round-robin
+    over them, each on its thread's stream): byte-equal, kernel A once per
+    tile with events both times."""
+    from modkit_tpu_torch.parallel import devices
+
+    real = devices.compute_devices
+    outs, secs = {}, {}
+    try:
+        for n in (1, N_DEVICES):
+            devices.compute_devices = lambda device, n=n: [card] * n
+            outs[n] = os.path.join(work, f"devices{n}.bed")
+            reset_launches()
+            secs[n], _ = run_path(a_bam, outs[n], device=str(card),
+                                  no_filtering=True)
+            launches = read_launches()
+            n_tiles = tiles_with_rows(outs[n])
+            require(launches == (n_tiles, 0, 0),
+                    f"{n} devices: launches {launches} for {n_tiles} tiles")
+    finally:
+        devices.compute_devices = real
+    same_files(outs[1], outs[N_DEVICES], "1-vs-N pileup")
+    log(f"1-vs-N pileup of A: {card} x 1 {secs[1]:.2f} s, x {N_DEVICES} "
+        f"{secs[N_DEVICES]:.2f} s, kernel A launched {n_tiles} times each "
+        f"({n_tiles} tiles); byte-equal")
+
+
+def phase_shard_processes(work: str, a_bam: str, fa: str, single_bed: str,
+                          single_entropy: str, dev) -> list:
+    """Phase 13, step 5: SHARD_PROCESSES processes on the one card in a
+    gloo group (MODKIT_TPU_COORD on localhost): the shard-mode pileup and
+    entropy of A, each byte-equal to the single process's; kernel A's
+    launches over the ranks sum to the tiles with events. Returns each
+    rank's launches."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    bed = os.path.join(work, "shards.bed")
+    ent = os.path.join(work, "shards.bedgraph")
+    argv = [["pileup", a_bam, bed, "--no-filtering", "--suppress-progress",
+             "--device", dev.type],
+            ["entropy", "-s", a_bam, "--ref", fa, "--cpg", "-o", ent,
+             "--force", "--suppress-progress"]]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(SHARD_PROCESSES):
+            log_path = os.path.join(work, f"shard{rank}.log")
+            env = dict(os.environ, MODKIT_TPU_COORD=f"127.0.0.1:{port}",
+                       MODKIT_TPU_NPROC=str(SHARD_PROCESSES),
+                       MODKIT_TPU_PROC_ID=str(rank))
+            with open(log_path, "w") as fh:
+                procs.append((subprocess.Popen(
+                    [sys.executable, "-c", _SHARD_RANK, json.dumps(argv)],
+                    cwd=HERE, env=env, stdout=fh, stderr=subprocess.STDOUT),
+                    log_path))
+        launches = []
+        for rank, (proc, log_path) in enumerate(procs):
+            rc = proc.wait(timeout=600)
+            text = open(log_path).read()
+            require(rc == 0, f"shard rank {rank}: exit {rc}:\n" + text[-4000:])
+            line = [x for x in text.splitlines()
+                    if x.startswith("LAUNCHES ")][-1]
+            launches.append(json.loads(line.split(" ", 1)[1]))
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    secs = time.perf_counter() - t0
+    same_files(single_bed, bed, "shard-mode pileup")
+    same_files(single_entropy, ent, "shard-mode entropy")
+    n_tiles = tiles_with_rows(bed)
+    require(sum(q for q, _ in launches) == n_tiles
+            and all(q > 0 and f == 0 for q, f in launches),
+            f"shard runs: launches {launches} for {n_tiles} tiles")
+    log(f"shard runs: {SHARD_PROCESSES} processes on the one card (gloo), "
+        f"pileup + entropy of A in {secs:.1f} s; kernel A launches per rank "
+        f"{[q for q, _ in launches]} (sum {n_tiles} = tiles); pileup and "
+        "entropy byte-equal to one process")
     return launches
 
 
@@ -1324,11 +1577,20 @@ def main() -> int:
         many = phase_many_codes(tile, dev, work)
         lab_rows = phase_lab()
         cram_launches = phase_cram(work)
-        phase_pileup_counts(tile, dev)
+        counts_f32_launches = phase_pileup_counts(tile, dev)
+        a_bam = os.path.join(work, "cram_src.bam")
+        a_fa = os.path.join(work, "cram_src.fa")
         down_launches = phase_downstream(
-            work, os.path.join(work, "cram_src.bam"),
-            os.path.join(work, "cram_src.fa"),
-            os.path.join(work, "small.bam"), card)
+            work, a_bam, a_fa, os.path.join(work, "small.bam"), card)
+        t_phase = time.perf_counter()
+        entropy_out = phase_entropy_and_motifs(work, a_bam, a_fa)
+        sharded = phase_sharded(tile, dev)
+        phase_one_vs_n(work, a_bam, torch.device("cuda", 0))
+        phase_shard_processes(work, a_bam, a_fa,
+                              os.path.join(work, "down_a.cuda.bed"),
+                              entropy_out, dev)
+        log(f"parallel phase: {time.perf_counter() - t_phase:.1f} s on "
+            f"{card}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1336,9 +1598,13 @@ def main() -> int:
         dict(name="threshold_state", route="cuda",
              source="modkit_tpu_torch/csrc/state.cu",
              replaces="modkit_tpu/ops/pallas_state.py:91",
-             launches=state_launches, max_abs_err=st["max_abs_err"],
-             ms=st["ms"], plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
-             bound_by=st["bound_by"], library_ms=None),
+             launches=state_launches,
+             library_ms=None, **{k: st["quals_t"][k] for k in KERNEL_KEYS}),
+        dict(name="threshold_state_f32", route="cuda",
+             source="modkit_tpu_torch/csrc/state.cu",
+             replaces="modkit_tpu/ops/pileup_counts.py:324",
+             launches=counts_f32_launches + sharded["launches"],
+             library_ms=None, **{k: st["f32"][k] for k in KERNEL_KEYS}),
         dict(name="modcall_counts", route="cuda",
              source="modkit_tpu_torch/csrc/counts.cu",
              replaces="modkit_tpu/ops/pallas_counts.py:210",
@@ -1357,7 +1623,8 @@ def main() -> int:
         *lab_rows,
     ]
     log(f"kernel A launches: main path {state_launches}, downstream "
-        f"pileups {down_launches}")
+        f"pileups {down_launches}; f32 entry: run_pileup_counts "
+        f"{counts_f32_launches}, sharded pileup {sharded['launches']}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -5,13 +5,15 @@ modkit_tpu's flags: ``pileup`` (BAM or CRAM; ``--device`` chooses the
 run's device, ``cuda`` by default), ``summary``, ``sample-probs``,
 ``adjust-mods``, ``call-mods``, ``update-tags``, ``extract full``/``calls``,
 ``validate``, ``pileup-hemi``, ``dmr pair``/``multi``, ``stats``,
-``localize``, ``bedmethyl merge``/``tobigwig``, ``repair`` and ``modbam
-check-tags``/``sample-reads``. Only ``pileup`` runs its counting on the
-device; the others run on the host, as in modkit_tpu. Under
-MODKIT_TPU_OFFLOAD=always every threshold estimate sorts its confidences
-on the card (``thresholds.thresholds_from_confidences``), so a subcommand
-that estimates a threshold then needs one. ``entropy``, ``motif`` and
-``find-motifs`` are not in the port yet.
+``localize``, ``bedmethyl merge``/``tobigwig``, ``repair``, ``modbam
+check-tags``/``sample-reads``, ``entropy``, ``motif search``/``refine``/
+``evaluate``/``bed`` and ``find-motifs``: every subcommand of modkit_tpu.
+Only ``pileup`` runs its counting on the device; the others run on the
+host, as in modkit_tpu. Under MODKIT_TPU_OFFLOAD=always every threshold
+estimate that goes through ``thresholds.thresholds_from_confidences``
+sorts its confidences on the card, so a subcommand that estimates a
+threshold that way then needs one (``entropy`` sorts its estimate on the
+host, as modkit_tpu's does).
 """
 
 from __future__ import annotations
@@ -413,6 +415,43 @@ def build_parser() -> argparse.ArgumentParser:
         func=cmd_bedmethyl_tobigwig, command_name="bedmethyl tobigwig"
     )
 
+    # ---- entropy (entropy/subcommand.rs:28-181) ----
+    p = sub.add_parser(
+        "entropy", help="methylation entropy in sliding windows"
+    )
+    p.add_argument("-s", "--in-bam", action="append", required=True,
+                   dest="in_bam")
+    p.add_argument("-o", "--out-bed", default=None)
+    p.add_argument("--prefix", default=None)
+    p.add_argument("-n", "--num-positions", type=int, default=4)
+    p.add_argument("-w", "--window-size", type=int, default=50)
+    p.add_argument("--no-filtering", action="store_true")
+    p.add_argument("--num-reads", type=int, default=10_042)
+    p.add_argument("-p", "--filter-percentile", type=float, default=0.1)
+    p.add_argument("--filter-threshold", "--pass_threshold", type=float,
+                   default=None)
+    p.add_argument("--mod-thresholds", "--mod-threshold", action="append",
+                   default=None)
+    p.add_argument("-t", "--threads", type=int, default=4)
+    p.add_argument("--io-threads", type=int, default=None)
+    p.add_argument("--ref", "--reference", required=True)
+    p.add_argument("--mask", action="store_true")
+    p.add_argument("--motif", nargs=2, action="extend", default=None)
+    p.add_argument("--cpg", action="store_true")
+    p.add_argument("--base", action="append", default=None)
+    p.add_argument("--regions", default=None)
+    p.add_argument("--combine-strands", action="store_true")
+    p.add_argument("--min-coverage", type=int, default=3,
+                   dest="min_coverage")
+    p.add_argument("--log-filepath", "--log", default=None)
+    p.add_argument("--verbose-logging", action="store_true", dest="verbose")
+    p.add_argument("--suppress-progress", action="store_true")
+    p.add_argument("--force", action="store_true")
+    p.add_argument("--header", "--with-header", action="store_true")
+    p.add_argument("--drop-zeros", action="store_true")
+    p.add_argument("--max-filtered-positions", type=int, default=None)
+    p.set_defaults(func=cmd_entropy, command_name="entropy")
+
     # ---- validate (validate/subcommand.rs:797-889) ----
     p = sub.add_parser("validate", help="accuracy vs ground-truth BEDs")
     p.add_argument("--bam-and-bed", nargs=2, action="extend", default=[],
@@ -505,6 +544,85 @@ def build_parser() -> argparse.ArgumentParser:
     q.set_defaults(
         func=cmd_modbam_sample_reads, command_name="modbam sample-reads"
     )
+
+    # ---- motif search/refine/evaluate/bed (find_motifs/) ----
+    def _add_motif_input(q):
+        q.add_argument("-i", "--in-bedmethyl", required=True)
+        q.add_argument("-t", "--threads", type=int, default=4)
+        q.add_argument("--io-threads", type=int, default=2)
+        q.add_argument("-r", "--ref", required=True)
+        q.add_argument("--contig", default=None)
+        q.add_argument("--log-filepath", "--log", default=None)
+        q.add_argument("--suppress-progress", action="store_true")
+
+    def _add_refine_args(q):
+        q.add_argument("--low-thresh", type=float, default=0.2)
+        q.add_argument("--high-thresh", type=float, default=0.6)
+        q.add_argument("--min-log-odds", type=float, default=1.5)
+        q.add_argument("--exhaustive-seed-min-log-odds", type=float,
+                       default=2.5)
+        q.add_argument("--exhaustive-seed-len", type=int, default=3)
+        q.add_argument("--skip-search", action="store_true")
+        q.add_argument("--min-coverage", type=int, default=5)
+        q.add_argument("--context-size", nargs=2, type=int, default=[12, 12])
+        q.add_argument("--min-sites", type=int, default=300)
+        q.add_argument("--min-frac-mod", type=float, default=0.85)
+
+    def _add_known_motifs(q):
+        q.add_argument("--known-motif", nargs=3, action="extend", default=None)
+        q.add_argument("--known-motifs-table", default=None)
+
+    p = sub.add_parser("motif", help="motif utilities")
+    fsub = p.add_subparsers(dest="motif_mode", required=True)
+    q = fsub.add_parser("search", help="discover enriched motifs")
+    _add_motif_input(q)
+    _add_refine_args(q)
+    _add_known_motifs(q)
+    q.add_argument("-o", "--out-table", default=None)
+    q.add_argument("--eval-motifs-table", default=None)
+    q.add_argument("--init-context-size", nargs=2, type=int, default=[2, 2])
+    q.add_argument("--mod-code", action="append", default=None)
+    q.add_argument("--force-override-spec", action="store_true")
+    q.set_defaults(func=cmd_motif_search, command_name="motif search")
+    q = fsub.add_parser("refine", help="refine known motifs")
+    _add_motif_input(q)
+    _add_known_motifs(q)
+    _add_refine_args(q)
+    q.add_argument("--out", default=None)
+    q.add_argument("--min_refine_frac_mod", type=float, default=0.6,
+                   dest="min_refine_frac_mod")
+    q.add_argument("--min-refine-sites", type=int, default=300)
+    q.add_argument("--force-override-spec", action="store_true")
+    q.set_defaults(func=cmd_motif_refine, command_name="motif refine")
+    q = fsub.add_parser("evaluate", help="score known motifs")
+    _add_motif_input(q)
+    _add_known_motifs(q)
+    q.add_argument("--out", default=None)
+    q.add_argument("--force-override-spec", action="store_true")
+    q.add_argument("--min-coverage", type=int, default=5)
+    q.add_argument("--context-size", nargs=2, type=int, default=[12, 12])
+    q.add_argument("--low-thresh", type=float, default=0.2)
+    q.add_argument("--high-thresh", type=float, default=0.6)
+    q.add_argument("--suppress-table", action="store_true")
+    q.set_defaults(func=cmd_motif_evaluate, command_name="motif evaluate")
+    q = fsub.add_parser("bed", help="emit motif locations BED")
+    q.add_argument("fasta")
+    q.add_argument("motif")
+    q.add_argument("offset", type=int)
+    q.add_argument("-k", "--mask", action="store_true")
+    q.set_defaults(func=cmd_motif_bed, command_name="motif bed")
+
+    # find-motifs = deprecated alias of motif search
+    q = sub.add_parser("find-motifs", help="motif discovery from bedMethyl")
+    _add_motif_input(q)
+    _add_refine_args(q)
+    _add_known_motifs(q)
+    q.add_argument("-o", "--out-table", default=None)
+    q.add_argument("--eval-motifs-table", default=None)
+    q.add_argument("--init-context-size", nargs=2, type=int, default=[2, 2])
+    q.add_argument("--mod-code", action="append", default=None)
+    q.add_argument("--force-override-spec", action="store_true")
+    q.set_defaults(func=cmd_motif_search, command_name="find-motifs")
 
     return ap
 
@@ -987,6 +1105,36 @@ def cmd_dmr_multi(args) -> int:
     from .engines.dmr import run_multi
 
     return run_multi(args)
+
+
+def cmd_entropy(args) -> int:
+    from .engines.entropy import run_entropy
+
+    return run_entropy(args)
+
+
+def cmd_motif_search(args) -> int:
+    from .engines.find_motifs import run_motif_search
+
+    return run_motif_search(args)
+
+
+def cmd_motif_refine(args) -> int:
+    from .engines.find_motifs import run_motif_refine
+
+    return run_motif_refine(args)
+
+
+def cmd_motif_evaluate(args) -> int:
+    from .engines.find_motifs import run_motif_evaluate
+
+    return run_motif_evaluate(args)
+
+
+def cmd_motif_bed(args) -> int:
+    from .engines.motif_bed import run_motif_bed
+
+    return run_motif_bed(args)
 
 
 def main(argv=None) -> int:

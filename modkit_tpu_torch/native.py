@@ -1,13 +1,14 @@
 """ctypes bindings to the native C++ runtime (native/modkit_native.cpp).
 
 The port's own trimmed copy of ``modkit_tpu.native``: it holds only what the
-pileup, threshold sampling, the modBAM rewriters, ``extract`` and ``dmr``
-use — BAM record parse + MM/ML/MN decode + per-tile pileup event
-extraction, the host threshold/histogram passes, native row formatting,
+pileup, threshold sampling, the modBAM rewriters, ``extract``, ``dmr`` and
+``entropy`` use — BAM record parse + MM/ML/MN decode + per-tile pileup
+event extraction, the host threshold/histogram passes, native row formatting,
 BGZF compression, CRAM container decode (``cram_decode_container``), the
 adjust/call-mods/update-tags span engine (``adjust_stream``), the extract
-TSV stream (``extract_full_stream``) and the columnar bedMethyl parse
-(``parse_bedmethyl_columns``) — in multithreaded C++.
+TSV stream (``extract_full_stream``), the columnar bedMethyl parse
+(``parse_bedmethyl_columns``) and entropy's window engine (``me_entropy``,
+``EntropyBatch``) — in multithreaded C++.
 
 The shared library builds on first use with ``g++`` from the repository's
 ``native/modkit_native.cpp`` into ``modkit_tpu_torch/_build/``, under a file
@@ -390,6 +391,49 @@ def load():
                 ctypes.POINTER(ctypes.c_int64),    # out_names_len
                 ctypes.POINTER(ctypes.c_int64),    # out_consumed
             ]
+            lib.mk_me_entropy.restype = ctypes.c_float
+            lib.mk_me_entropy.argtypes = [
+                ctypes.c_char_p, ctypes.c_int32, ctypes.c_int32,
+                ctypes.c_float,
+            ]
+            lib.mk_entropy_new.restype = ctypes.c_void_p
+            lib.mk_entropy_new.argtypes = [
+                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                ctypes.c_int32, ctypes.c_int32,  # route_all
+                ctypes.POINTER(ctypes.c_int8),   # plus_base
+                ctypes.POINTER(ctypes.c_int64),  # plus_pos
+                ctypes.POINTER(ctypes.c_int8),   # minus_base
+                ctypes.POINTER(ctypes.c_int64),  # minus_pos
+                ctypes.POINTER(ctypes.c_int32),  # plus_present
+                ctypes.POINTER(ctypes.c_int32),  # minus_present
+                ctypes.POINTER(ctypes.c_int64),  # gates
+                ctypes.POINTER(ctypes.c_double),  # can_thr4
+                ctypes.POINTER(ctypes.c_double),  # mod_fallback4
+                ctypes.POINTER(ctypes.c_int64),  # pm_codes
+                ctypes.POINTER(ctypes.c_double),  # pm_thrs
+                ctypes.c_int32,                  # n_pm
+            ]
+            lib.mk_entropy_add.restype = ctypes.c_int32
+            lib.mk_entropy_add.argtypes = [
+                ctypes.c_void_p,
+                ctypes.POINTER(ctypes.c_char), ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(ctypes.c_int64), ctypes.c_int32,
+                ctypes.c_int32, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int32,
+            ]
+            lib.mk_entropy_finish.restype = None
+            lib.mk_entropy_finish.argtypes = [
+                ctypes.c_void_p, ctypes.c_int32,
+                ctypes.POINTER(ctypes.c_int32),
+                ctypes.POINTER(ctypes.c_float),
+                ctypes.POINTER(ctypes.c_int32),
+                ctypes.POINTER(ctypes.c_int32),
+                ctypes.POINTER(ctypes.c_float),
+                ctypes.POINTER(ctypes.c_int32),
+            ]
+            lib.mk_entropy_free.restype = None
+            lib.mk_entropy_free.argtypes = [ctypes.c_void_p]
             lib.mk_parse_bedmethyl.restype = ctypes.c_int32
             lib.mk_parse_bedmethyl.argtypes = [
                 ctypes.c_char_p, ctypes.c_int64,
@@ -1488,3 +1532,150 @@ def extract_full_stream(
             yield text, int(out.n_reads), errors
         finally:
             lib.mk_free_extract(ctypes.byref(out))
+
+
+def me_entropy(sequences: list[str], window_size: int, constant: float):
+    """Native calc_me_entropy (modkit_native.cpp mk_me_entropy); None if
+    the native library is unavailable."""
+    lib = load()
+    if lib is None:
+        return None
+    blob = "".join(sequences).encode("ascii")
+    return lib.mk_me_entropy(blob, len(sequences), window_size, constant)
+
+
+class EntropyBatch:
+    """Native entropy window-batch engine (mk_entropy_* in
+    modkit_native.cpp): decode + threshold calls + pattern assembly +
+    per-window entropy in C++. None-able: construct via ``create``."""
+
+    @classmethod
+    def create(cls, windows, combine: bool, num_positions: int,
+               max_filtered: int, caller, route_all: bool = False):
+        lib = load()
+        if lib is None:
+            return None
+        n = len(windows)
+        N = num_positions
+        plus_base = np.zeros(n * N, dtype=np.int8)
+        plus_pos = np.zeros(n * N, dtype=np.int64)
+        minus_base = np.zeros(n * N, dtype=np.int8)
+        minus_pos = np.zeros(n * N, dtype=np.int64)
+        plus_present = np.zeros(n, dtype=np.int32)
+        minus_present = np.zeros(n, dtype=np.int32)
+        gates = np.full(n * 4, -1, dtype=np.int64)
+        for wi, w in enumerate(windows):
+            if w.combine:
+                # '+'-read keys: pos-side values sorted by position;
+                # '-'-read keys: neg keys ordered by their value's position
+                items = sorted(
+                    w.neg_to_pos.items(), key=lambda kv: kv[1][1]
+                )
+                pk = [pv for _nk, pv in items]
+                mk = [nk for nk, _pv in items]
+                iv = w.interval("+")
+                gates[wi * 4 + 0], gates[wi * 4 + 1] = iv
+                plus_present[wi] = 1
+                minus_present[wi] = 1
+                for i, (b, p) in enumerate(pk):
+                    plus_base[wi * N + i] = ord(b)
+                    plus_pos[wi * N + i] = p
+                for i, (b, p) in enumerate(mk):
+                    minus_base[wi * N + i] = ord(b)
+                    minus_pos[wi * N + i] = p
+            else:
+                if w.pos_positions is not None:
+                    iv = w.interval("+")
+                    gates[wi * 4 + 0], gates[wi * 4 + 1] = iv
+                    plus_present[wi] = 1
+                    for i, (b, p) in enumerate(w.pos_positions):
+                        plus_base[wi * N + i] = ord(b)
+                        plus_pos[wi * N + i] = p
+                if w.neg_positions is not None:
+                    iv = w.interval("-")
+                    gates[wi * 4 + 2], gates[wi * 4 + 3] = iv
+                    minus_present[wi] = 1
+                    for i, (b, p) in enumerate(w.neg_positions):
+                        minus_base[wi * N + i] = ord(b)
+                        minus_pos[wi * N + i] = p
+        from .modcodes import any_mod_code
+
+        can_thr = np.array(
+            [caller.canonical_threshold(b) for b in "ACGT"],
+            dtype=np.float64,
+        )
+        fallback = np.array(
+            [
+                float(
+                    caller.per_mod.get(
+                        any_mod_code(b),
+                        caller.per_base.get(b, caller.default_threshold),
+                    )
+                )
+                for b in "ACGT"
+            ],
+            dtype=np.float64,
+        )
+        pm_codes = np.array(
+            [_encode_mod_code(c) for c in caller.per_mod],
+            dtype=np.int64,
+        )
+        pm_thrs = np.array(
+            [float(v) for v in caller.per_mod.values()], dtype=np.float64
+        )
+        i8 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int8))
+        i32 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+        i64 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+        f64 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+        h = lib.mk_entropy_new(
+            n, N, 1 if combine else 0, max_filtered,
+            1 if route_all else 0,
+            i8(plus_base), i64(plus_pos), i8(minus_base), i64(minus_pos),
+            i32(plus_present), i32(minus_present), i64(gates),
+            f64(can_thr), f64(fallback),
+            i64(pm_codes) if len(pm_codes) else None,
+            f64(pm_thrs) if len(pm_thrs) else None, len(pm_codes),
+        )
+        self = cls()
+        self._lib = lib
+        self._h = h
+        self._n = n
+        return self
+
+    def add(self, raw, voffsets, tid: int, lo: int, hi: int,
+            n_threads: int = 1) -> None:
+        vbeg = np.array([v[0] for v in voffsets], dtype=np.int64)
+        vend = np.array([v[1] for v in voffsets], dtype=np.int64)
+        self._lib.mk_entropy_add(
+            self._h, as_cbuf(raw), len(raw),
+            vbeg.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            vend.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            len(voffsets), tid, lo, hi, n_threads,
+        )
+
+    def finish(self, min_coverage: int):
+        n = self._n
+        ps = np.zeros(n, dtype=np.int32)
+        pm = np.zeros(n, dtype=np.float32)
+        pn = np.zeros(n, dtype=np.int32)
+        ms = np.zeros(n, dtype=np.int32)
+        mm = np.zeros(n, dtype=np.float32)
+        mn = np.zeros(n, dtype=np.int32)
+        i32 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+        f32 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+        self._lib.mk_entropy_finish(
+            self._h, min_coverage,
+            i32(ps), f32(pm), i32(pn), i32(ms), f32(mm), i32(mn),
+        )
+        return ps, pm, pn, ms, mm, mn
+
+    def close(self):
+        if self._h is not None:
+            self._lib.mk_entropy_free(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

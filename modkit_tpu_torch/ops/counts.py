@@ -36,9 +36,12 @@ Also here: ``pileup_count_kernel`` and ``run_pileup_counts``, the port of
 the XLA-jitted functions of the same names in
 ``modkit_tpu/ops/pileup_counts.py``: the call and count of all three event
 types (modcall, nocall, delete) into the full ``K = 6 + 4 * (M + 1)``
-layout. No Pallas kernel lies under them and no pileup route runs them, so
-they are torch ops on the inputs' device (the plain call, then
-``torch.bincount``), with no hand-written kernel.
+layout. Their call is kernel A's f32 entry (``state.threshold_state_f32``,
+the port of the XLA ``threshold_states`` they call), which launches its
+CUDA kernel on a CUDA tensor; their count, an XLA scatter-add with no
+Pallas kernel under it, is a ``torch.bincount`` on the inputs' device.
+``pileup_count_kernel`` is the per-device body of the sharded pileup
+(``parallel/sharded_pileup.py``).
 """
 
 from __future__ import annotations
@@ -48,7 +51,9 @@ import threading
 import numpy as np
 import torch
 
-from .state import call_states_plain, validate_cuda_launch
+from .state import (
+    call_states_plain, threshold_state_f32, validate_cuda_launch,
+)
 
 # launches of the CUDA count kernel in this process
 COUNT_KERNEL_LAUNCHES = 0
@@ -211,11 +216,14 @@ def pileup_count_kernel(rpos, strand, base_idx, ev_type, probs, valid,
     on the inputs' device.
 
     ``rpos``, ``strand``, ``base_idx``, ``ev_type`` (0 modcall, 1 nocall,
-    2 delete) are integer [N], ``probs`` f32 [N, M] (−1 = absent class),
-    ``valid`` bool [N]. A modcall event counts at its call's counter
-    (filtered, canonical or mod j of its base), a nocall at ``2 + base``,
-    a delete at 0, all at the flat index ``(rpos * 2 + strand) * K +
-    counter``.
+    2 delete) are integer [N], ``probs`` contiguous f32 [N, M] (−1 =
+    absent class), ``valid`` bool [N]; ``thr_mod`` f32 [M, 4] and
+    ``thr_can`` f32 [4] are CPU tensors (kernel A takes them by value).
+    The call is ``threshold_state_f32``: kernel A's f32 entry on a CUDA
+    device, its plain version on the CPU. A modcall event counts at its
+    call's counter (filtered, canonical or mod j of its base), a nocall at
+    ``2 + base``, a delete at 0, all at the flat index
+    ``(rpos * 2 + strand) * K + counter``.
 
     Out-of-range indices follow the JAX reference's ``.at[flat].add``: the
     index is computed in int32 (so it wraps as XLA's does), a negative one
@@ -226,11 +234,12 @@ def pileup_count_kernel(rpos, strand, base_idx, ev_type, probs, valid,
     m = num_codes
     k = 6 + 4 * (m + 1)
     size = num_positions * 2 * k
-    p_cols = [probs[:, j] for j in range(probs.shape[1])]
-    state = call_states_plain(
-        p_cols, [p >= 0 for p in p_cols], base_idx, thr_mod, thr_can
-    ).to(torch.int64)
     b = base_idx.to(torch.int64)
+    # the kernel's u8 base: 1..3 pick their threshold column, any other
+    # value the first, as in the reference's call
+    base_u8 = torch.where((b >= 1) & (b <= 3), b, 0).to(torch.uint8)
+    state = threshold_state_f32(probs, base_u8, thr_mod, thr_can).to(
+        torch.int64)
     mod_counter = torch.where(state == 0, 1, 6 + b * (m + 1) + (state - 1))
     ev = ev_type.to(torch.int64)
     counter = torch.where(ev == 0, mod_counter,
@@ -259,7 +268,8 @@ def run_pileup_counts(
     [num_positions, 2, K(m_pad)], m_pad = round_up_codes(m). As in the JAX
     reference, the codes pad to m_pad (absent classes, zero thresholds)
     and the positions to ``round_up_positions``, so out-of-range events
-    land where its padded call puts them."""
+    land where its padded call puts them. The events go to ``device``; the
+    thresholds stay on the host, as kernel A takes them."""
     from ..parallel.devices import resolve_device
 
     dev = resolve_device(device)
@@ -272,14 +282,17 @@ def run_pileup_counts(
     probs_p = np.pad(probs, ((0, 0), (0, m_pad - m)), constant_values=-1.0)
     thr_mod_p = np.pad(thr_mod[:m], ((0, m_pad - m), (0, 0)))
 
+    def host(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype))
+
     def t(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+        return host(a, dtype).to(dev)
 
     out = pileup_count_kernel(
         t(rpos, np.int32), t(strand, np.int32), t(base_idx, np.int32),
         t(ev_type, np.int32), t(probs_p, np.float32),
         torch.ones(n, dtype=torch.bool, device=dev),
-        t(thr_mod_p, np.float32), t(thr_can, np.float32),
+        host(thr_mod_p, np.float32), host(thr_can, np.float32),
         num_positions=p_pad, num_codes=m_pad,
     )
     return out[:num_positions].cpu().numpy()

@@ -4,10 +4,13 @@ Single host: genome tiles dispatch round-robin across the local CUDA
 devices (the tiles axis of SURVEY §2.5 — the reference's rayon interval
 fan-out, pileup/mod.rs:684, mapped onto cards instead of threads). The run's
 device is chosen once at the entry point (``resolve_device``) and passed
-down; nothing here holds a current device. The shard helpers
-(``process_info``, ``sync_processes``, ``shard_path``, ``merge_shards``)
-work over a ``torch.distributed`` process group; starting a multi-host run
-(``maybe_init_distributed``) arrives in a later slice of the port.
+down; nothing here holds a current device.
+
+Multi-host: ``maybe_init_distributed`` joins a gloo ``torch.distributed``
+process group from MODKIT_TPU_COORD/NPROC/PROC_ID; each process then owns
+tiles (or window batches, regions, byte ranges) round-robin, writes a
+shard with tile sentinels (``shard_path``), and after ``sync_processes``
+rank 0 interleaves the shards back (``merge_shards``).
 """
 
 from __future__ import annotations
@@ -144,15 +147,45 @@ def offload_events_to_device(
 
 
 def maybe_init_distributed() -> bool:
-    """Multi-host runs (MODKIT_TPU_COORD / MODKIT_TPU_NPROC /
-    MODKIT_TPU_PROC_ID) arrive in a later slice of the port: raise when
-    they are asked for, return False otherwise."""
-    if os.environ.get("MODKIT_TPU_COORD"):
-        raise NotImplementedError(
-            "multi-host pileup arrives in a later slice of modkit_tpu_torch "
-            "(MODKIT_TPU_COORD is set)"
-        )
-    return False
+    """Join the run's ``torch.distributed`` process group from
+    MODKIT_TPU_COORD (``host:port`` of rank 0's store) / MODKIT_TPU_NPROC /
+    MODKIT_TPU_PROC_ID; no-op and False when MODKIT_TPU_COORD is unset.
+
+    The group is gloo on any device: only a barrier crosses processes
+    (``sync_processes``), no tensor collective, and gloo lets several
+    processes share one card, where NCCL refuses two ranks on one GPU.
+    MODKIT_TPU_INIT_TIMEOUT (seconds) bounds the rendezvous only; the
+    barrier keeps the default timeout, so a rank that finishes its shard
+    early waits for the others. A repeat call is tolerated, but any other
+    init failure (bad coordinator, port clash, rank mismatch) is FATAL —
+    silently degrading to single-process would produce a partial-genome
+    shard named like the final output."""
+    coord = os.environ.get("MODKIT_TPU_COORD")
+    if not coord:
+        return False
+    import datetime
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return True
+    try:
+        host, port = coord.rsplit(":", 1)
+        world_size = int(os.environ["MODKIT_TPU_NPROC"])
+        rank = int(os.environ["MODKIT_TPU_PROC_ID"])
+        timeout = os.environ.get("MODKIT_TPU_INIT_TIMEOUT")
+        kwargs = {}
+        if timeout:
+            kwargs["timeout"] = datetime.timedelta(seconds=int(timeout))
+        store = dist.TCPStore(host, int(port), world_size,
+                              is_master=rank == 0, **kwargs)
+        dist.init_process_group("gloo", store=store, world_size=world_size,
+                                rank=rank)
+    except Exception as e:
+        raise RuntimeError(
+            f"torch.distributed init failed (coordinator={coord}): {e}"
+        ) from e
+    return True
 
 
 def process_info() -> tuple[int, int]:

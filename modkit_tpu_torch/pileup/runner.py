@@ -11,8 +11,8 @@ The port of modkit_tpu/pileup/runner.py. The run's device comes from
 ``PileupConfig.device`` (default ``"cuda"``); without a CUDA device a run
 that did not ask for the CPU raises. CRAM input (``--ref`` names its
 FASTA) runs serially on the Python event route, whose count is kernel B on
-a CUDA device. Multi-host runs arrive in a later slice of the port and are
-refused here.
+a CUDA device. A multi-host run (MODKIT_TPU_COORD) joins a gloo process
+group and writes its shard of the tiles; rank 0 merges the shards.
 """
 
 from __future__ import annotations
@@ -246,9 +246,32 @@ def run_pileup(cfg: PileupConfig) -> dict:
                                 fh.truncate(0)
         journal_fh = open(cfg.journal, "a")
 
-    # multi-host shard mode arrives in a later slice: this raises when a
-    # multi-process run is configured
-    maybe_init_distributed()
+    # multi-host: after the process group's init each process owns tiles
+    # where tile_index % process_count == process_index, writes a
+    # genome-ordered shard, and process 0 merges after a cross-host barrier
+    # (built-in replacement for the reference's manual --region sharding,
+    # book/src/perf_considerations.md:3-9)
+    pidx, pcount = 0, 1
+    shard_mode = False
+    out_path = cfg.out
+    if cfg.use_device:
+        from ..parallel.devices import process_info, shard_path
+
+        maybe_init_distributed()
+        pidx, pcount = process_info()
+        if pcount > 1:
+            if (
+                cfg.bedgraph
+                or cfg.partition_tags
+                or cfg.journal
+                or cfg.out in ("-", "stdout")
+            ):
+                raise ValueError(
+                    "multi-host pileup requires a plain bedMethyl output "
+                    "path (no bedgraph/partition/journal)"
+                )
+            shard_mode = True
+            out_path = shard_path(cfg.out, pidx)
 
     if cfg.bedgraph:
         writer = BedGraphWriter(
@@ -271,8 +294,13 @@ def run_pileup(cfg: PileupConfig) -> dict:
         out_fh = open(cfg.out, "a")
         writer = BedMethylWriter(out_fh, cfg.mixed_delimiters, False)
     else:
+        # in shard mode only rank 0 writes the header (it lands inside
+        # rank 0's first tile block, i.e. at the top of the merged file);
+        # ranks >=1 emitting headers would embed them mid-file after merge
         writer = BedMethylWriter(
-            cfg.out, cfg.mixed_delimiters, cfg.with_header
+            out_path,
+            cfg.mixed_delimiters,
+            cfg.with_header and (not shard_mode or pidx == 0),
         )
 
     if cfg.region is not None:
@@ -463,6 +491,8 @@ def run_pileup(cfg: PileupConfig) -> dict:
         meta, fut = item
         chrom, tid, start, end = meta
         finish_and_write((chrom, tid, start, end, fut.result()))
+        if shard_mode:
+            writer.write_tile_sentinel()
 
     # observability: MODKIT_TPU_PROFILE=<dir> captures a torch.profiler
     # trace of the tile loop (device kernels + host gaps) as a Chrome trace
@@ -482,7 +512,9 @@ def run_pileup(cfg: PileupConfig) -> dict:
     pool = ThreadPoolExecutor(max_workers=n_workers)
     inflight: deque = deque()
     try:
-        for tile in iter_tiles():
+        for tile_idx, tile in enumerate(iter_tiles()):
+            if pcount > 1 and tile_idx % pcount != pidx:
+                continue  # owned by another host
             tid, chrom, start, end, _focus = tile
             inflight.append(
                 ((chrom, tid, start, end), pool.submit(launch, tile))
@@ -506,6 +538,14 @@ def run_pileup(cfg: PileupConfig) -> dict:
     writer.close()
     if journal_fh is not None:
         journal_fh.close()
+    if shard_mode:
+        # cross-host barrier, then process 0 interleaves the shards back
+        # into one genome-ordered bedMethyl
+        from ..parallel.devices import merge_shards, sync_processes
+
+        sync_processes("modkit_pileup_shards")
+        if pidx == 0:
+            merge_shards(cfg.out, pcount)
     log.info(
         "Done, processed %d rows. Processed ~%d reads and skipped ~%d reads.",
         n_rows, proc.n_used, proc.n_skipped,

@@ -37,7 +37,9 @@ COPIES = (
     "engines/adjust.py",
     "engines/bedmethyl_tools.py",
     "engines/dmr.py",
+    "engines/find_motifs.py",
     "engines/modbam_util.py",
+    "engines/motif_bed.py",
     "engines/pileup_hemi.py",
     "engines/repair.py",
     "engines/validate.py",
@@ -58,22 +60,31 @@ COPIES = (
 # same path as an original, but a port of it
 PORTS = {
     "__init__.py": "the package docstring names the port",
-    "cli.py": "only the ported subcommands; pileup takes --device",
+    "cli.py": "pileup takes --device; the docstring names the port",
     "engines/dmr_single_site.py": "the shard barrier is a torch.distributed "
                                   "barrier (sync_processes), not jax's",
+    "engines/entropy.py": "the shard barrier is a torch.distributed "
+                          "barrier (sync_processes), not jax's",
     "engines/extract.py": "the shard barrier is a torch.distributed "
                           "barrier (sync_processes), not jax's",
     "thresholds.py": "the forced-device percentile sorts with torch.sort "
                      "on the run's device instead of a jitted jnp.sort",
     "ops/__init__.py": "the docstring names the CUDA kernels",
-    "parallel/__init__.py": "the docstring: device selection, not a mesh",
-    "parallel/devices.py": "torch devices, the device rule; process_info "
-                           "and sync_processes over torch.distributed; no "
-                           "mesh or multi-host runs yet",
+    "parallel/__init__.py": "the docstring: devices, a grid of torch "
+                            "devices and a process group, not a jax Mesh",
+    "parallel/devices.py": "torch devices, the device rule; a gloo "
+                           "torch.distributed process group for multi-host "
+                           "runs (maybe_init_distributed, process_info, "
+                           "sync_processes) instead of jax.distributed",
+    "parallel/sharded_pileup.py": "a [tiles, readers] grid of torch devices "
+                                  "driven by one process instead of a jax "
+                                  "Mesh and shard_map; the readers' psum "
+                                  "is an int32 sum on the tile's first "
+                                  "device",
     "pileup/engine.py": "the kernels' wrappers, CUDA streams and pinned "
                         "copies instead of jitted calls",
-    "pileup/runner.py": "the run's device, torch.profiler; multi-host "
-                        "runs refused",
+    "pileup/runner.py": "the run's device, torch.profiler; the shard "
+                        "barrier is sync_processes, not jax's",
 }
 
 

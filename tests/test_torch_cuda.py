@@ -4,9 +4,12 @@ Kernel A (state: the quals entry for M in {1, 2, 4, 8}, the f32 entry for
 any M up to ``MAX_CLASSES``) and kernel B (counts, any M; every cell
 written, out-of-range events dropped), with a 9-code
 pileup on the card against the host route; a CRAM pileup on the card
-(kernel B on every tile) against the CPU run, and ``run_pileup_counts`` on
-the card against the CPU; and the count-kernel lab's kernels
-(``ops/lab_counts.py``) against their plain versions and the oracle.
+(kernel B on every tile) against the CPU run, and ``run_pileup_counts``,
+``pileup_count_kernel`` and the sharded count on the card against the CPU
+(each launch of kernel A's f32 entry counted); a pileup over ``cuda:0``
+listed 1 and 4 times, and a two-process shard run on the one card; and the
+count-kernel lab's kernels (``ops/lab_counts.py``) against their plain
+versions and the oracle.
 
 The tests marked ``cuda`` need an NVIDIA GPU (a CUDA kernel has no CPU
 mode) and skip without one; on a machine with a card run them with
@@ -375,8 +378,12 @@ def test_run_pileup_counts_on_cuda_equals_the_cpu(cuda_device, m):
     thr_mod = rng.random((m, 4), dtype=np.float32) * np.float32(0.5)
     thr_can = rng.random(4, dtype=np.float32) * np.float32(0.8)
     args = (rpos, strand, base, ev_type, probs, thr_mod, thr_can, p)
+    f32_before = state.STATE_F32_KERNEL_LAUNCHES
     got = counts.run_pileup_counts(*args, device="cuda")
+    # the call is kernel A's f32 entry: one launch per call
+    assert state.STATE_F32_KERNEL_LAUNCHES == f32_before + 1
     want = counts.run_pileup_counts(*args, device="cpu")
+    assert state.STATE_F32_KERNEL_LAUNCHES == f32_before + 1
     assert got.dtype == np.int32 and np.array_equal(got, want)
     assert 0 < got.sum() < n
 
@@ -866,3 +873,135 @@ def test_lab_diag_group_plans_equal_plain(cuda_device, kind, name):
                      [t.to(cuda_device) for t in planes],
                      [t.to(cuda_device) for t in rows], g, chunk=256)
     assert torch.equal(got.cpu(), cpu)
+
+
+# ---- the parallel paths: sharded count, 1 vs N devices, shard runs ----
+
+@pytest.mark.cuda
+def test_pileup_count_kernel_on_cuda_launches_the_f32_entry(cuda_device):
+    """pileup_count_kernel on the card takes its call from kernel A's f32
+    entry, one launch, and equals the CPU's, out-of-range events
+    included."""
+    rng = np.random.default_rng(8)
+    n, m, p = 200_003, 2, 5_000
+    rpos = rng.integers(-3, p + 3, n).astype(np.int32)
+    strand = rng.integers(0, 2, n).astype(np.int32)
+    base = rng.integers(0, 5, n).astype(np.int32)
+    ev_type = rng.integers(0, 3, n).astype(np.int32)
+    probs = rng.random((n, m), dtype=np.float32) / np.float32(m)
+    probs[rng.random((n, m)) < 0.3] = -1.0
+    valid = rng.random(n) < 0.9
+    tm = torch.from_numpy(rng.random((m, 4), dtype=np.float32) * 0.5)
+    tc = torch.from_numpy(rng.random(4, dtype=np.float32) * 0.8)
+    cpu = [torch.from_numpy(a) for a in (rpos, strand, base, ev_type, probs,
+                                         valid)]
+    kw = dict(num_positions=p, num_codes=m)
+    before = state.STATE_F32_KERNEL_LAUNCHES
+    got = counts.pileup_count_kernel(*(a.to(cuda_device) for a in cpu), tm,
+                                     tc, **kw)
+    assert state.STATE_F32_KERNEL_LAUNCHES == before + 1
+    want = counts.pileup_count_kernel(*cpu, tm, tc, **kw)
+    assert torch.equal(got.cpu(), want) and int(want.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_sharded_pileup_on_one_card_equals_the_cpu(cuda_device):
+    """A 4 x 2 grid of cuda:0: one f32 launch per shard, the counts the
+    CPU grid's."""
+    from modkit_tpu_torch.parallel import sharded_pileup as sp
+
+    rng = np.random.default_rng(9)
+    t, r, e, m, p = 4, 2, 20_000, 2, 3_000
+    rpos = rng.integers(-1, p + 1, (t, r, e)).astype(np.int32)
+    strand = rng.integers(0, 2, (t, r, e)).astype(np.int32)
+    base = rng.integers(0, 4, (t, r, e)).astype(np.int32)
+    ev_type = rng.integers(0, 3, (t, r, e)).astype(np.int32)
+    probs = rng.uniform(-1, 1, (t, r, e, m)).astype(np.float32)
+    valid = rng.random((t, r, e)) < 0.9
+    tm = rng.random((m, 4), dtype=np.float32) * np.float32(0.6)
+    tc = rng.random(4, dtype=np.float32) * np.float32(0.6)
+    args = (rpos, strand, base, ev_type, probs, valid, tm, tc, p)
+    before = state.STATE_F32_KERNEL_LAUNCHES
+    got = sp.run_sharded_pileup(sp.make_mesh(t, r, [cuda_device] * 8),
+                                *args)
+    assert state.STATE_F32_KERNEL_LAUNCHES == before + t * r
+    want = sp.run_sharded_pileup(sp.make_mesh(t, r, ["cpu"] * 8), *args)
+    assert np.array_equal(got, want) and got.sum() > 0
+
+
+@pytest.mark.cuda
+def test_pileup_at_1_and_4_entries_of_one_card(cuda_device, tmp_path,
+                                               monkeypatch):
+    """compute_devices patched to cuda:0 listed 1 and 4 times: byte-equal
+    bedMethyls, kernel A launched once per tile with events both times."""
+    import filecmp
+
+    from modkit_tpu_torch.parallel import devices
+    from modkit_tpu_torch.pileup.runner import PileupConfig, run_pileup
+    from modkit_tpu_torch.utils.synth import make_synthetic_modbam
+
+    bam = str(tmp_path / "s.bam")
+    make_synthetic_modbam(bam, n_reads=600, read_len=2000, coverage=20.0,
+                          seed=6)
+    monkeypatch.setenv("MODKIT_TPU_OFFLOAD", "always")
+    outs = {}
+    for n in (1, 4):
+        monkeypatch.setattr(devices, "compute_devices",
+                            lambda device, n=n: [cuda_device] * n)
+        outs[n] = str(tmp_path / f"{n}.bed")
+        before = state.STATE_KERNEL_LAUNCHES
+        run_pileup(PileupConfig(in_bam=bam, out=outs[n], interval_size=5_000,
+                                no_filtering=True, suppress_progress=True,
+                                device="cuda"))
+        tiles = {int(line.split("\t", 2)[1]) // 5_000
+                 for line in open(outs[n])}
+        assert state.STATE_KERNEL_LAUNCHES - before == len(tiles) > 4
+    assert filecmp.cmp(outs[1], outs[4], shallow=False)
+
+
+@pytest.mark.cuda
+def test_two_process_shard_pileup_on_one_card(cuda_device, tmp_path):
+    """Two ranks of a gloo group share the card: the merged bedMethyl is
+    the single process's."""
+    import filecmp
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from modkit_tpu_torch.pileup.runner import PileupConfig, run_pileup
+    from modkit_tpu_torch.utils.synth import make_synthetic_modbam
+
+    bam = str(tmp_path / "s.bam")
+    make_synthetic_modbam(bam, n_reads=600, read_len=2000, coverage=20.0,
+                          seed=6)
+    single, multi = str(tmp_path / "single.bed"), str(tmp_path / "multi.bed")
+    kw = dict(interval_size=5_000, no_filtering=True, with_header=True,
+              suppress_progress=True)
+    run_pileup(PileupConfig(in_bam=bam, out=single, device="cuda", **kw))
+    s = socket.socket()
+    s.bind(("", 0))
+    port = s.getsockname()[1]
+    s.close()
+    code = (
+        "from modkit_tpu_torch.pileup.runner import PileupConfig, "
+        "run_pileup\n"
+        f"run_pileup(PileupConfig(in_bam={bam!r}, out={multi!r}, "
+        f"device='cuda', **{kw!r}))\n"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code], cwd=repo, stderr=subprocess.PIPE,
+        env=dict(os.environ, MODKIT_TPU_COORD=f"127.0.0.1:{port}",
+                 MODKIT_TPU_NPROC="2", MODKIT_TPU_PROC_ID=str(rank)))
+        for rank in range(2)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err.decode()[-4000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert filecmp.cmp(single, multi, shallow=False)

@@ -19,7 +19,8 @@ SUBCOMMANDS = [
     ("modbam", "sample-reads"), ("extract", "full"), ("extract", "calls"),
     ("dmr", "pair"), ("dmr", "multi"), ("stats",), ("localize",),
     ("bedmethyl", "merge"), ("bedmethyl", "tobigwig"), ("validate",),
-    ("pileup-hemi",),
+    ("pileup-hemi",), ("entropy",), ("motif", "search"), ("motif", "refine"),
+    ("motif", "evaluate"), ("motif", "bed"), ("find-motifs",),
 ]
 # flags of the port's subparser that modkit_tpu's does not have
 PORT_ONLY = {("pileup",): {"--device"}}

@@ -10,8 +10,9 @@
   port's own bedMethyls); so does the count-kernel lab's entry point,
   ``tools/kernel_lab.py``.
 - Without a CUDA device, an entry point that did not ask for the CPU
-  raises instead of running there; multi-host runs, which arrive in a
-  later slice, are refused. (CRAM input runs: tests/test_torch_cram.py.)
+  raises instead of running there; a multi-host run whose coordinator
+  cannot be reached fails with the fatal init error. (CRAM input runs:
+  tests/test_torch_cram.py; multi-host runs: tests/test_torch_multihost.py.)
 """
 
 import ast
@@ -175,7 +176,22 @@ def test_cli_device_defaults_to_cuda():
 
 
 def test_multi_host_is_refused(tmp_path, bam, monkeypatch):
-    monkeypatch.setenv("MODKIT_TPU_COORD", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    """A multi-host run whose coordinator cannot be reached is refused with
+    the fatal init error, within MODKIT_TPU_INIT_TIMEOUT, and writes
+    nothing: it never degrades to a single-process run."""
+    import time
+
+    import torch.distributed as dist
+
+    monkeypatch.setenv("MODKIT_TPU_COORD", "localhost:1")
+    monkeypatch.setenv("MODKIT_TPU_NPROC", "2")
+    monkeypatch.setenv("MODKIT_TPU_PROC_ID", "1")
+    monkeypatch.setenv("MODKIT_TPU_INIT_TIMEOUT", "2")
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="init failed .coordinator="
+                                           "localhost:1"):
         run_pileup(PileupConfig(in_bam=bam, out=str(tmp_path / "o.bed"),
                                 no_filtering=True, device="cpu"))
+    assert time.monotonic() - t0 < 60
+    assert not dist.is_initialized()
+    assert not os.listdir(tmp_path)
