@@ -13,9 +13,11 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
 2. build the kernels (one ``nvcc`` per ``csrc/*.cu``, started together)
    and the host C++ runtime;
 3. the state kernel (``csrc/state.cu``) against its plain PyTorch version,
-   exactly, on a real tile of the bench workload and on ragged sizes (one
-   with N % 16 != 0 at every M, so planes 1.. start unaligned), for M in
-   {1, 2, 4, 8} and both entries, with times and bounds;
+   exactly, on a real tile of the bench workload and on ragged sizes (N %
+   16 takes every value, so planes 1.. start unaligned), for M in {1, 2,
+   4, 8} and both entries, the f32 entry also on arbitrary f32 rows, with
+   times and bounds; and the launch floor (the quals entry at N = 4096,
+   M = 1);
 4. the count kernel (``csrc/counts.cu``) against its plain version,
    exactly, at the tile's shape with P = 100 000 and M in {2, 4, 8}, with
    ``torch.bincount`` over precomputed keys as the library yardstick; at
@@ -88,7 +90,15 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
     kernel A once per tile with events; and two processes on the card in
     a gloo group (MODKIT_TPU_COORD on localhost) running the shard-mode
     pileup and entropy of A, each byte-equal to one process's, their
-    kernel A launches summing to the tiles with events.
+    kernel A launches summing to the tiles with events;
+14. the bench modBAM piled up with ``--ignore h`` (kernel A's f32 entry at
+    M = 1 on every tile: collapsed probabilities leave the compact
+    encoding) and with ``--combine-mods`` (its probabilities stay exact ML
+    values: the quals entry at M = 2), with no filtering, on ``cuda``,
+    under MODKIT_TPU_OFFLOAD=never and with ``use_device=False``, each mode
+    byte-equal with its launches counted; then a 2 000-read modBAM with
+    six mod codes (m_pad 8: the quals entry at M = 8) on ``cuda`` and under
+    ``never``, byte-equal, one launch per tile with events.
 
 Before phase 3 it prints the card's measured peaks (``tools/true_bench.py``:
 HBM read and copy rates, bf16 ``torch.matmul`` rate) beside the data-sheet
@@ -169,9 +179,33 @@ def middle_tile(reader):
     )
 
 
+# phase 3's event counts besides the bench tile's: N % 16 takes every value
+# in 4096..4111, so the quals planes 1.. and the f32 entry's last group
+# start at every offset
+STATE_RAGGED = (1, 127, 128 * 1000 + 3, *range(4096, 4112))
+
+
+def arbitrary_rows(rng, n: int, m: int, thr_mod, base):
+    """f32 rows off the 1/256 grid: absent (−1), 0 and 1.0 values, values
+    equal to their threshold, rows whose sum exceeds 1."""
+    import numpy as np
+
+    probs = rng.random((n, m), dtype=np.float32) * np.float32(1.5 / m)
+    probs[rng.random((n, m)) < 0.15] = -1.0
+    probs[rng.random((n, m)) < 0.05] = 0.0
+    probs[rng.random((n, m)) < 0.02] = 1.0
+    at_thr = rng.random((n, m)) < 0.1
+    col = np.where((base >= 1) & (base <= 3), base, 0)  # the call's column
+    return np.ascontiguousarray(
+        np.where(at_thr, thr_mod.T[col], probs), dtype=np.float32)
+
+
 def phase_state(tile, dev) -> dict:
-    """Kernel A against its plain version; returns the kernels entries of
-    its quals and f32 entries at the bench tile's M."""
+    """Kernel A against its plain version at every M in {1, 2, 4, 8}, on
+    the bench tile and on ragged counts, each entry also on arbitrary f32
+    rows; times both entries at the tile's count. Returns {(entry, M):
+    kernels entry} and, under "floor_ms", the launch floor: the quals entry
+    at N = 4096, M = 1, timed the same way."""
     import numpy as np
     import torch
 
@@ -181,10 +215,16 @@ def phase_state(tile, dev) -> dict:
     rng = np.random.default_rng(7)
     n_main = tile.n_events
     worst = 0
+
+    def check(what: str, got, want) -> None:
+        nonlocal worst
+        torch.cuda.synchronize()
+        worst = max(worst, int((got.int() - want.int()).abs().max().item()))
+        require(torch.equal(got, want), f"state kernel ({what}) != plain")
+
     entries = {}
     for m in (1, 2, 4, 8):
-        # n_main - 7: N % 16 != 0, so planes 1.. start unaligned at every M
-        for n in (n_main, 1, 127, 128 * 1000 + 3, n_main - 7):
+        for n in (n_main, *STATE_RAGGED, n_main - 7):
             if m == tile.m and n == n_main:
                 quals_t, present, zero, base = tile.export_quals_t(n, m)
             else:
@@ -205,6 +245,11 @@ def phase_state(tile, dev) -> dict:
                 np.where(pres, np.where(zer, np.float32(0), p), np.float32(-1))
             )
             probs_d = torch.from_numpy(probs).to(dev)
+            rows_d = torch.from_numpy(
+                arbitrary_rows(rng, n, m, thr_mod, base)).to(dev)
+            check(f"f32, arbitrary rows, M={m} N={n}",
+                  state.threshold_state_f32(rows_d, gpu[3], tm, tc),
+                  state.threshold_state_f32_plain(rows_d, gpu[3], tm, tc))
             for entry_name, kern, plain in (
                 ("quals_t",
                  lambda: state.threshold_state_quals_t(*gpu, tm, tc),
@@ -214,13 +259,7 @@ def phase_state(tile, dev) -> dict:
                  lambda: state.threshold_state_f32_plain(
                      probs_d, gpu[3], tm, tc)),
             ):
-                got = kern()
-                want = plain()
-                torch.cuda.synchronize()
-                err = int((got.int() - want.int()).abs().max().item())
-                worst = max(worst, err)
-                require(torch.equal(got, want),
-                        f"state kernel ({entry_name}) != plain at M={m} N={n}")
+                check(f"{entry_name}, M={m} N={n}", kern(), plain())
                 if n != n_main:
                     continue
                 ms, call_ms = cuda_time_ms(kern, 200)
@@ -234,12 +273,25 @@ def phase_state(tile, dev) -> dict:
                 log(f"state {entry_name} M={m} N={n}: kernel {ms:.5f} ms "
                     f"(per call {call_ms:.5f} ms), plain {plain_ms:.5f} ms, "
                     f"bound {b_ms:.5f} ms ({b_by}), share {b_ms / ms:.3f}")
-                if m == tile.m:
-                    entries[entry_name] = dict(
-                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, n=n, m=m)
+                entries[entry_name, m] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    n=n, m=m)
     for entry in entries.values():
         entry["max_abs_err"] = worst
+    log(f"state kernels == plain at M in (1, 2, 4, 8) on N in "
+        f"{(n_main, *STATE_RAGGED, n_main - 7)}, f32 also on arbitrary rows")
+    # the launch floor: a launch that moves almost nothing, timed back to
+    # back as the kernels above
+    n, m = 4096, 1
+    q = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, 256, (m, n)).astype(np.uint8),
+        np.ones(n, dtype=np.uint8), np.zeros(n, dtype=np.uint8),
+        rng.integers(0, 4, n).astype(np.uint8))]
+    tm, tc = state.thresholds_to_tensors(np.zeros((m, 4)), np.zeros(4), m)
+    floor_ms, _ = cuda_time_ms(
+        lambda: state.threshold_state_quals_t(*q, tm, tc), 200)
+    log(f"state launch floor: quals entry at N={n} M={m}: {floor_ms:.5f} ms")
+    entries["floor_ms"] = floor_ms
     return entries
 
 
@@ -1156,6 +1208,91 @@ def phase_shard_processes(work: str, a_bam: str, fa: str, single_bed: str,
     return launches
 
 
+# phase 14: the bench modBAM's pileups that leave the compact encoding or
+# keep it, and the six-code modBAM (m_pad 8: the quals entry at M = 8)
+SIX_READS = 2000
+
+
+def phase_collapse_and_six_codes(bam: str, work: str) -> dict:
+    """Pileups of the bench modBAM with ``--ignore h`` (the f32 entry at M
+    = 1: collapsed probabilities are not exact ML values) and with
+    ``--combine-mods`` (its probabilities stay exact ML values, so the
+    quals entry at M = 2), with no filtering on ``cuda``, under
+    MODKIT_TPU_OFFLOAD=never and with ``use_device=False``, byte-equal per
+    mode; then a six-code modBAM on ``cuda`` and under ``never``,
+    byte-equal. Returns {"f32_m1": launches of the ``--ignore h`` cuda run,
+    "quals_m8": launches of the six-code cuda run}."""
+    from modkit_tpu_torch.collapse import CollapseMethod
+    from modkit_tpu_torch.utils.synth_codes import (
+        NINE_CODES, make_multicode_modbam,
+    )
+
+    routes = (("cuda", "always", dict()),
+              ("host C++", "never", dict()),
+              ("host numpy", "always", dict(use_device=False)))
+    # mode: (pileup options, index in read_launches() of the entry it runs)
+    modes = {
+        "ignore h": (dict(collapse=[CollapseMethod("dist", ("h",))]), 1),
+        "combine-mods": (dict(combine_mods=True), 0),
+    }
+
+    def run(path: str, out: str, offload: str, **kw) -> tuple:
+        os.environ["MODKIT_TPU_OFFLOAD"] = offload
+        reset_launches()
+        try:
+            t, stats = run_path(path, out, device="cuda", no_filtering=True,
+                                **kw)
+        finally:
+            os.environ["MODKIT_TPU_OFFLOAD"] = "always"
+        require(stats["rows"] > 0, f"{out}: no rows")
+        return t, read_launches()
+
+    launches = {}
+    for mode, (kw, entry) in modes.items():
+        first, secs = None, {}
+        for route, offload, extra in routes:
+            out = os.path.join(work, f"{mode.replace(' ', '_')}."
+                                     f"{route.replace(' ', '_')}.bed")
+            secs[route], got = run(bam, out, offload, **kw, **extra)
+            if first is None:
+                first = out
+                n_tiles = tiles_with_rows(out)
+                want = [0, 0, 0]
+                want[entry] = n_tiles
+                require(list(got) == want,
+                        f"{mode}: cuda launches {got}, want {want}")
+                launches[mode] = got[entry]
+            else:
+                require(got == (0, 0, 0), f"{mode}: {route} launched {got}")
+                require(filecmp.cmp(first, out, shallow=False),
+                        f"{mode}: the {route} route wrote other bytes")
+        log(f"{mode}: {n_tiles} tiles, {launches[mode]} "
+            f"{'f32' if entry else 'quals'} state launches on cuda, "
+            "byte-equal on the three routes; reads/s "
+            + ", ".join(f"{r} {BENCH_READS / t:.0f}" for r, t in secs.items()))
+    six = os.path.join(work, "six.bam")
+    make_multicode_modbam(six, n_reads=SIX_READS, read_len=BENCH_READ_LEN,
+                          seed=5, codes=NINE_CODES[:6])
+    outs, secs = {}, {}
+    for route, offload, _ in routes[:2]:
+        outs[route] = os.path.join(work, f"six.{route.replace(' ', '_')}.bed")
+        secs[route], got = run(six, outs[route], offload)
+        if route == "cuda":
+            n_tiles = tiles_with_rows(outs[route])
+            require(got == (n_tiles, 0, 0),
+                    f"six codes: cuda launches {got}, want ({n_tiles}, 0, 0)")
+            launches["six codes"] = got[0]
+        else:
+            require(got == (0, 0, 0), f"six codes: {route} launched {got}")
+    require(filecmp.cmp(outs["cuda"], outs["host C++"], shallow=False),
+            "six codes: the host C++ route wrote other bytes")
+    log(f"six codes ({SIX_READS} reads, m_pad 8): {n_tiles} tiles, "
+        f"{launches['six codes']} quals state launches at M = 8 on cuda, "
+        "byte-equal to host C++; s "
+        + ", ".join(f"{r} {t:.3f}" for r, t in secs.items()))
+    return dict(f32_m1=launches["ignore h"], quals_m8=launches["six codes"])
+
+
 def phase_peaks() -> None:
     """The card's measured peaks, beside the data-sheet rate of the bounds."""
     from modkit_tpu_torch.tools import true_bench
@@ -1591,6 +1728,10 @@ def main() -> int:
                               entropy_out, dev)
         log(f"parallel phase: {time.perf_counter() - t_phase:.1f} s on "
             f"{card}")
+        t_phase = time.perf_counter()
+        collapse = phase_collapse_and_six_codes(bam, work)
+        log(f"collapse and six-code phase: "
+            f"{time.perf_counter() - t_phase:.1f} s on {card}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1598,13 +1739,24 @@ def main() -> int:
         dict(name="threshold_state", route="cuda",
              source="modkit_tpu_torch/csrc/state.cu",
              replaces="modkit_tpu/ops/pallas_state.py:91",
-             launches=state_launches,
-             library_ms=None, **{k: st["quals_t"][k] for k in KERNEL_KEYS}),
+             launches=state_launches, library_ms=None,
+             **{k: st["quals_t", tile.m][k] for k in KERNEL_KEYS}),
+        dict(name="threshold_state_m8", route="cuda",
+             source="modkit_tpu_torch/csrc/state.cu",
+             replaces="modkit_tpu/ops/pallas_state.py:91",
+             launches=collapse["quals_m8"], library_ms=None,
+             **{k: st["quals_t", 8][k] for k in KERNEL_KEYS}),
         dict(name="threshold_state_f32", route="cuda",
              source="modkit_tpu_torch/csrc/state.cu",
              replaces="modkit_tpu/ops/pileup_counts.py:324",
              launches=counts_f32_launches + sharded["launches"],
-             library_ms=None, **{k: st["f32"][k] for k in KERNEL_KEYS}),
+             library_ms=None,
+             **{k: st["f32", tile.m][k] for k in KERNEL_KEYS}),
+        dict(name="threshold_state_f32_m1", route="cuda",
+             source="modkit_tpu_torch/csrc/state.cu",
+             replaces="modkit_tpu/ops/pileup_counts.py:324",
+             launches=collapse["f32_m1"], library_ms=None,
+             **{k: st["f32", 1][k] for k in KERNEL_KEYS}),
         dict(name="modcall_counts", route="cuda",
              source="modkit_tpu_torch/csrc/counts.cu",
              replaces="modkit_tpu/ops/pallas_counts.py:210",
@@ -1623,8 +1775,11 @@ def main() -> int:
         *lab_rows,
     ]
     log(f"kernel A launches: main path {state_launches}, downstream "
-        f"pileups {down_launches}; f32 entry: run_pileup_counts "
-        f"{counts_f32_launches}, sharded pileup {sharded['launches']}")
+        f"pileups {down_launches}, six codes (M = 8) "
+        f"{collapse['quals_m8']}; f32 entry: run_pileup_counts "
+        f"{counts_f32_launches}, sharded pileup {sharded['launches']}, "
+        f"--ignore h (M = 1) {collapse['f32_m1']}; launch floor "
+        f"{st['floor_ms']:.5f} ms")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -28,15 +28,21 @@
 // to groups of 4 at every M, and the grouped kernel took 0.80, 0.76, 0.98
 // and 1.06x the time of one thread per event at M = 1, 2, 4, 8: at M = 8
 // the class loop's arithmetic, not the loads, sets the time, and more
-// threads hide its latency better.
+// threads hide its latency better. Tiles of all 11 planes staged into
+// shared memory by 16-byte cp.async copies lost there too (PERF.md).
 //
-// The f32 entry keeps one thread per event. It unrolls those counts too;
-// any other M up to kMaxClasses runs state_f32_kernel_any, a loop over m
-// classes with the thresholds in a larger by-value table. The unrolled
-// kernels stay beside it because they are faster where both apply (with M
-// known at compile time the compiler can drop the loop and widen a row's
-// loads): on the H100 the loop took up to 1.16x their time, at M = 4
-// (tools/call_bench.py; the readings are in PERF.md).
+// The f32 entry (collapsed probabilities, run_pileup_counts, the sharded
+// count) unrolls M in {1, 2, 4, 8} in state_f32_rows_kernel: each thread
+// takes G consecutive events whose rows are 4 * G * M contiguous bytes,
+// read in 16-byte loads (one 8-byte load for a row of 2), their G bases in
+// one load and their G states in one store, over one wave. launch_f32 takes
+// G = kF32Group = 4 at M = 1 and G = 1 above: on the H100
+// (tools/call_bench.py, PERF.md) G = 4 took 1.08, 1.05 and 1.56x that time
+// at M = 2, 4 and 8, and G = 2 1.01x at M = 8; rows staged through a ring
+// of bulk (TMA) copies lost at every M. The wrapper refuses a probs pointer
+// that is not 16-byte aligned and, at M = 1, a base pointer that is not
+// 4-byte aligned. Any other M up to kMaxClasses runs state_f32_kernel_any,
+// a loop over m classes with the thresholds in a larger by-value table.
 //
 // C interface: pointers are device pointers except thr_mod/thr_can (host),
 // which are copied into the by-value argument. Returns cudaGetLastError().
@@ -48,6 +54,8 @@ namespace {
 constexpr int kThreads = 256;       // the one-event-per-thread kernels
 constexpr int kQualsThreads = 128;  // the grouped quals kernel's blocks
 constexpr int kGroup = 4;           // events of a grouped quals thread
+constexpr int kF32Threads = 256;    // the f32 rows kernel's blocks
+constexpr int kF32Group = 4;        // events of an f32 thread at M = 1
 
 __device__ __forceinline__ uint32_t load4(const uint8_t* p) {
   return __ldg(reinterpret_cast<const uint32_t*>(p));
@@ -145,22 +153,103 @@ __global__ void state_quals_kernel(const uint8_t* __restrict__ quals_t,
   }
 }
 
+// One event of the f32 entry from its row of M probabilities.
 template <int M>
-__global__ void state_f32_kernel(const float* __restrict__ probs,
-                                 const uint8_t* __restrict__ base, int64_t n,
-                                 Thresholds thr, uint8_t* __restrict__ out) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
+__device__ __forceinline__ uint8_t f32_state(const float* __restrict__ row,
+                                             int base, const Thresholds& thr) {
+  float p[M];
+  uint32_t present = 0;
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    p[j] = row[j];
+    present |= (p[j] >= 0.0f ? 1u : 0u) << j;  // -1 marks an absent class
+  }
+  return call_state<M>(p, present, base, thr);
+}
+
+// K consecutive floats from src through the read-only path, aligned to 16
+// bytes (K % 4 == 0: 16-byte loads) or to 4 * K bytes (K = 1, 2: one load).
+template <int K>
+__device__ __forceinline__ void load_floats(const float* src, float (&f)[K]) {
+  if constexpr (K % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < K / 4; ++k) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(src) + k);
+      f[4 * k] = v.x;
+      f[4 * k + 1] = v.y;
+      f[4 * k + 2] = v.z;
+      f[4 * k + 3] = v.w;
+    }
+  } else if constexpr (K == 2) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(src));
+    f[0] = v.x;
+    f[1] = v.y;
+  } else {
+    static_assert(K == 1, "rows of 1, 2 or 4k floats");
+    f[0] = __ldg(src);
+  }
+}
+
+// G consecutive bytes at p (G-byte aligned) in one load, and into p in one
+// store (G = 1, 2, 4).
+template <int G>
+__device__ __forceinline__ uint32_t load_bytes(const uint8_t* p) {
+  if constexpr (G == 4) return load4(p);
+  else if constexpr (G == 2)
+    return __ldg(reinterpret_cast<const unsigned short*>(p));
+  else return *p;
+}
+
+template <int G>
+__device__ __forceinline__ void store_bytes(uint8_t* p, uint32_t v) {
+  if constexpr (G == 4) *reinterpret_cast<uint32_t*>(p) = v;
+  else if constexpr (G == 2) *reinterpret_cast<uint16_t*>(p) = (uint16_t)v;
+  else *p = (uint8_t)v;
+}
+
+// The states of G consecutive events from their G x M probabilities
+// (events-major) and G base bytes: byte s of the result for event s.
+template <int M, int G>
+__device__ __forceinline__ uint32_t f32_group_states(const float (&f)[G * M],
+                                                     uint32_t bases,
+                                                     const Thresholds& thr) {
+  uint32_t res = 0;
+#pragma unroll
+  for (int s = 0; s < G; ++s) {
     float p[M];
     uint32_t present = 0;
 #pragma unroll
     for (int j = 0; j < M; ++j) {
-      p[j] = probs[i * M + j];
+      p[j] = f[s * M + j];
       present |= (p[j] >= 0.0f ? 1u : 0u) << j;  // -1 marks an absent class
     }
-    out[i] = call_state<M>(p, present, base[i], thr);
+    res |= (uint32_t)call_state<M>(p, present, (int)byte_of(bases, s), thr)
+           << (8 * s);
   }
+  return res;
+}
+
+// G consecutive events per thread (G = 1, 2 or 4): their rows in 16-byte
+// loads (one 8-byte load for a row of 2), their bases in one load and their
+// states in one store, over one wave; the last n % G events one per thread.
+template <int M, int G>
+__global__ void __launch_bounds__(kF32Threads)
+    state_f32_rows_kernel(const float* __restrict__ probs,
+                          const uint8_t* __restrict__ base, int64_t n,
+                          Thresholds thr, uint8_t* __restrict__ out) {
+  static_assert(G == 1 || G == 2 || G == 4, "1, 2 or 4 events a thread");
+  const int64_t groups = n / G;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  for (int64_t gi = tid; gi < groups; gi += stride) {
+    float f[G * M];
+    load_floats<G * M>(probs + gi * G * M, f);
+    store_bytes<G>(out + gi * G,
+                   f32_group_states<M, G>(f, load_bytes<G>(base + gi * G),
+                                          thr));
+  }
+  const int64_t i = groups * G + tid;
+  if (i < n) out[i] = f32_state<M>(probs + i * M, base[i], thr);
 }
 
 __global__ void state_f32_kernel_any(const float* __restrict__ probs,
@@ -182,8 +271,26 @@ int sm_count(int* sms) {
   return (int)e;
 }
 
-// The grouped kernel over one wave: the blocks per SM that its registers
-// allow x the SM count, or fewer where the groups need fewer.
+// The blocks of `threads` threads that kernel's registers allow on an SM.
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, int threads) {
+  int b = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, kernel, threads, 0);
+  return b > 0 ? b : 1;
+}
+
+// Blocks of one wave of a kernel with per_sm blocks an SM, or its `need`
+// blocks where fewer; at least one.
+int wave_blocks(int per_sm, int64_t need, unsigned int* blocks) {
+  int sms = 0;
+  const int rc = sm_count(&sms);
+  if (rc != 0) return rc;
+  const int64_t wave = (int64_t)per_sm * sms;
+  *blocks = (unsigned int)(need < 1 ? 1 : (need < wave ? need : wave));
+  return 0;
+}
+
+// The grouped kernel over one wave, or at M = 8 one thread per event.
 template <int M>
 int launch_quals(const uint8_t* quals_t, const uint8_t* present,
                  const uint8_t* zero, const uint8_t* base, int64_t n,
@@ -193,29 +300,30 @@ int launch_quals(const uint8_t* quals_t, const uint8_t* present,
         quals_t, present, zero, base, n, thr, out);
     return (int)cudaGetLastError();
   }
-  static const int per_sm = [] {
-    int b = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &b, state_quals_grouped_kernel<M>, kQualsThreads, 0);
-    return b > 0 ? b : 1;
-  }();
-  int sms = 0;
-  const int rc = sm_count(&sms);
+  static const int per_sm =
+      blocks_per_sm(state_quals_grouped_kernel<M>, kQualsThreads);
+  unsigned int blocks = 0;
+  const int rc = wave_blocks(
+      per_sm, (n / kGroup + kQualsThreads - 1) / kQualsThreads, &blocks);
   if (rc != 0) return rc;
-  const int64_t need = (n / kGroup + kQualsThreads - 1) / kQualsThreads;
-  const int64_t wave = (int64_t)per_sm * sms;
-  const int64_t blocks = need < 1 ? 1 : (need < wave ? need : wave);
-  state_quals_grouped_kernel<M>
-      <<<(unsigned int)blocks, kQualsThreads, 0, stream>>>(
-          quals_t, present, zero, base, n, thr, out);
+  state_quals_grouped_kernel<M><<<blocks, kQualsThreads, 0, stream>>>(
+      quals_t, present, zero, base, n, thr, out);
   return (int)cudaGetLastError();
 }
 
 template <int M>
-void launch_f32(const float* probs, const uint8_t* base, int64_t n,
-                const Thresholds& thr, uint8_t* out, cudaStream_t stream) {
-  state_f32_kernel<M><<<grid_for(n, kThreads), kThreads, 0, stream>>>(
+int launch_f32(const float* probs, const uint8_t* base, int64_t n,
+               const Thresholds& thr, uint8_t* out, cudaStream_t stream) {
+  constexpr int G = M == 1 ? kF32Group : 1;
+  static const int per_sm =
+      blocks_per_sm(state_f32_rows_kernel<M, G>, kF32Threads);
+  unsigned int blocks = 0;
+  const int rc =
+      wave_blocks(per_sm, (n / G + kF32Threads - 1) / kF32Threads, &blocks);
+  if (rc != 0) return rc;
+  state_f32_rows_kernel<M, G><<<blocks, kF32Threads, 0, stream>>>(
       probs, base, n, thr, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -245,7 +353,8 @@ extern "C" int mk_state_quals_t(const void* quals_t, const void* present,
   }
 }
 
-// Any m in [1, kMaxClasses].
+// Any m in [1, kMaxClasses]; at m = 1, 2, 4, 8 probs is 16-byte aligned,
+// at m = 1 base 4-byte aligned.
 extern "C" int mk_state_f32(const void* probs, const void* base, int64_t n,
                             int32_t m, const void* thr_mod,
                             const void* thr_can, void* out, void* stream) {
@@ -259,14 +368,13 @@ extern "C" int mk_state_f32(const void* probs, const void* base, int64_t n,
   if (m == 1 || m == 2 || m == 4 || m == 8) {
     const auto thr = make_thresholds<8>(tm, m, tc);
     switch (m) {
-      case 1: launch_f32<1>(p, b, n, thr, o, s); break;
-      case 2: launch_f32<2>(p, b, n, thr, o, s); break;
-      case 4: launch_f32<4>(p, b, n, thr, o, s); break;
-      case 8: launch_f32<8>(p, b, n, thr, o, s); break;
+      case 1: return launch_f32<1>(p, b, n, thr, o, s);
+      case 2: return launch_f32<2>(p, b, n, thr, o, s);
+      case 4: return launch_f32<4>(p, b, n, thr, o, s);
+      case 8: return launch_f32<8>(p, b, n, thr, o, s);
     }
-  } else {
-    state_f32_kernel_any<<<grid_for(n, kThreads), kThreads, 0, s>>>(
-        p, b, n, m, make_thresholds<kMaxClasses>(tm, m, tc), o);
   }
+  state_f32_kernel_any<<<grid_for(n, kThreads), kThreads, 0, s>>>(
+      p, b, n, m, make_thresholds<kMaxClasses>(tm, m, tc), o);
   return (int)cudaGetLastError();
 }

@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from .state import (
-    call_states_plain, threshold_state_f32, validate_cuda_launch,
+    F32_ALIGN, call_states_plain, threshold_state_f32, validate_cuda_launch,
 )
 
 # launches of the CUDA count kernel in this process
@@ -217,7 +217,8 @@ def pileup_count_kernel(rpos, strand, base_idx, ev_type, probs, valid,
 
     ``rpos``, ``strand``, ``base_idx``, ``ev_type`` (0 modcall, 1 nocall,
     2 delete) are integer [N], ``probs`` contiguous f32 [N, M] (−1 =
-    absent class), ``valid`` bool [N]; ``thr_mod`` f32 [M, 4] and
+    absent class; on CUDA a view at an offset that is not 16-byte aligned
+    is copied first), ``valid`` bool [N]; ``thr_mod`` f32 [M, 4] and
     ``thr_can`` f32 [4] are CPU tensors (kernel A takes them by value).
     The call is ``threshold_state_f32``: kernel A's f32 entry on a CUDA
     device, its plain version on the CPU. A modcall event counts at its
@@ -238,6 +239,11 @@ def pileup_count_kernel(rpos, strand, base_idx, ev_type, probs, valid,
     # the kernel's u8 base: 1..3 pick their threshold column, any other
     # value the first, as in the reference's call
     base_u8 = torch.where((b >= 1) & (b <= 3), b, 0).to(torch.uint8)
+    if probs.device.type == "cuda" and probs.data_ptr() % F32_ALIGN:
+        # kernel A's f32 entry reads rows in 16-byte loads and refuses a
+        # view at another offset: such a caller's rows get an aligned copy
+        # here (a new allocation is 16-byte aligned)
+        probs = probs.clone()
     state = threshold_state_f32(probs, base_u8, thr_mod, thr_can).to(
         torch.int64)
     mod_counter = torch.where(state == 0, 1, 6 + b * (m + 1) + (state - 1))

@@ -19,18 +19,22 @@ unrolled in registers. For M in ``QUALS_GROUPED_CLASSES`` each thread
 takes ``QUALS_GROUP`` consecutive events in 4-byte loads and one 4-byte
 store, over one wave of blocks; a plane that is not 4-byte aligned
 (N % 4 != 0) takes two loads and a funnel shift, and the last N % 4
-events run one per thread. At M = 8 one thread takes one event: there the
-grouped kernel was slower on the H100 (``tools/call_bench.py``,
-``PERF.md``). The f32 entry keeps one thread per event, unrolls those M
-too and takes any other M up to ``MAX_CLASSES`` (the state 2 + j is one
-byte) through a runtime-M kernel, a loop over the classes (slower than the
-unrolled kernels where both apply).
+events run one per thread. At M = 8 one thread takes one event: no other
+body beat it there on the H100 (``tools/call_bench.py``, ``PERF.md``).
+The f32 entry unrolls ``F32_CLASSES``: one event per thread with its row
+in 16-byte loads (8-byte at M = 2), ``F32_GROUP`` events per thread at
+M = 1, over one wave; any other M up to ``MAX_CLASSES`` (the state 2 + j
+is one byte) runs a runtime-M kernel, a loop over the classes.
 
 Each wrapper runs the plain PyTorch version for tensors on the CPU and
 launches the kernel for tensors on a CUDA device; anything else raises. The
 thresholds travel by value, so the kernel takes them as CPU tensors. The
-quals entry refuses an input whose base pointer is not 4-byte aligned
-(``engine._upload`` gives every array a 16-byte-aligned slot).
+quals entry refuses an input whose base pointer is not ``QUALS_GROUP``-byte
+aligned; at M in ``F32_CLASSES`` the f32 entry refuses a ``probs`` that
+is not ``F32_ALIGN``-byte aligned, and at M = 1 a ``base`` that is not
+``F32_GROUP``-byte aligned (``engine._upload`` gives every array a
+16-byte-aligned slot; a view at another offset needs a copy, as
+``ops/counts.pileup_count_kernel`` makes).
 """
 
 from __future__ import annotations
@@ -56,6 +60,13 @@ MAX_CLASSES = 253
 QUALS_GROUPED_CLASSES = (1, 2, 4)
 QUALS_GROUP = 4
 QUALS_THREADS = 128
+# csrc/state.cu's f32 entry: the class counts of its rows kernel, that
+# kernel's events per thread at M = 1 (kF32Group), threads per block
+# (kF32Threads) and the alignment of its 16-byte row loads
+F32_CLASSES = (1, 2, 4, 8)
+F32_GROUP = 4
+F32_THREADS = 256
+F32_ALIGN = 16
 
 
 def _count_launch(f32: bool) -> None:
@@ -220,7 +231,8 @@ def threshold_state_quals_t(quals_t, present, zero, base, thr_mod, thr_can):
 
 def threshold_state_f32(probs, base, thr_mod, thr_can):
     """u8 [N] states from events-major f32 ``probs`` [N, M] (−1 = absent)
-    and u8 [N] ``base``."""
+    and u8 [N] ``base``; on CUDA at M in ``F32_CLASSES`` ``probs`` is
+    ``F32_ALIGN``-byte aligned, and at M = 1 ``base`` ``F32_GROUP``-byte."""
     if probs.device.type == "cpu":
         return threshold_state_f32_plain(probs, base, thr_mod, thr_can)
     n, m = probs.shape
@@ -234,8 +246,15 @@ def threshold_state_f32(probs, base, thr_mod, thr_can):
     out = torch.empty(n, dtype=torch.uint8, device=dev)
     if n == 0:
         return out
-    from .kernels import check_launch, kernel_lib
+    from .kernels import check_aligned, check_launch, kernel_lib
 
+    # the rows kernel's 16-byte row loads, and at M = 1 its 4-byte loads of
+    # F32_GROUP bases
+    if m in F32_CLASSES:
+        check_aligned("threshold_state_f32", {"probs": probs},
+                      align=F32_ALIGN)
+    if m == 1:
+        check_aligned("threshold_state_f32", {"base": base}, align=F32_GROUP)
     lib = kernel_lib("state")
     tm = thr_mod.contiguous()
     tc = thr_can.contiguous()

@@ -1,9 +1,11 @@
 """modkit_tpu_torch's CUDA kernels against their plain PyTorch versions.
 
 Kernel A (state: the quals entry for M in {1, 2, 4, 8}, the f32 entry for
-any M up to ``MAX_CLASSES``) and kernel B (counts, any M; every cell
-written, out-of-range events dropped), with a 9-code
-pileup on the card against the host route; a CRAM pileup on the card
+any M up to ``MAX_CLASSES``, on arbitrary f32 rows and ragged counts, and
+its alignment rules) and kernel B
+(counts, any M; every cell written, out-of-range events dropped), with a
+9-code and a collapsed (``--ignore h``) pileup on the card against the
+host route; a CRAM pileup on the card
 (kernel B on every tile) against the CPU run, and ``run_pileup_counts``,
 ``pileup_count_kernel`` and the sharded count on the card against the CPU
 (each launch of kernel A's f32 entry counted); a pileup over ``cuda:0``
@@ -130,6 +132,166 @@ def test_state_kernel_rejects_unsupported_classes(cuda_device):
     tm, tc = state.thresholds_to_tensors(np.zeros((3, 4)), np.zeros(4), 3)
     with pytest.raises(ValueError, match="M in"):
         state.threshold_state_quals_t(q, z, z, z, tm, tc)
+
+
+# ---- kernel A's f32 rows bodies and its M = 8 quals body ----
+
+F32_EVENT_COUNTS = (*range(1, 34), 4111, 200_003, 615_136)
+
+
+def _arbitrary_rows(rng, n, m):
+    """f32 rows off the 1/256 grid: absent (−1), 0 and 1.0 values, values
+    equal to their threshold, rows whose sum exceeds 1; u8 bases 0..4 (4
+    takes the first threshold column, as the call's select chain does)."""
+    thr_mod = rng.random((m, 4), dtype=np.float32) * np.float32(0.6)
+    thr_can = rng.random(4, dtype=np.float32) * np.float32(0.6)
+    base = rng.integers(0, 5, n).astype(np.uint8)
+    probs = rng.random((n, m), dtype=np.float32) * np.float32(1.5 / m)
+    probs[rng.random((n, m)) < 0.15] = -1.0
+    probs[rng.random((n, m)) < 0.05] = 0.0
+    probs[rng.random((n, m)) < 0.02] = 1.0
+    col = np.where((base >= 1) & (base <= 3), base, 0)
+    probs = np.where(rng.random((n, m)) < 0.1, thr_mod.T[col], probs)
+    return np.ascontiguousarray(probs, dtype=np.float32), base, thr_mod, thr_can
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 4, 8])
+def test_state_f32_rows_equal_plain_on_arbitrary_rows(cuda_device, m):
+    """The f32 entry's rows kernel (4 events a thread at M = 1, one with
+    16-byte row loads above) at every N % 4 and N % 16 up to 33 and at
+    4111, 200 003 and the bench tile's 615 136, one launch each."""
+    rng = np.random.default_rng(600 + m)
+    for n in F32_EVENT_COUNTS:
+        probs, base, thr_mod, thr_can = _arbitrary_rows(rng, n, m)
+        tm, tc = state.thresholds_to_tensors(thr_mod, thr_can, m)
+        p, b = (torch.from_numpy(a).to(cuda_device) for a in (probs, base))
+        before = state.STATE_F32_KERNEL_LAUNCHES
+        got = state.threshold_state_f32(p, b, tm, tc)
+        assert state.STATE_F32_KERNEL_LAUNCHES == before + 1
+        assert torch.equal(got, state.threshold_state_f32_plain(p, b, tm,
+                                                                tc)), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n0", [4096, 615_136 - 16])
+def test_state_quals_m8_at_every_ragged_tail(cuda_device, n0):
+    """The M = 8 quals body at N % 16 = 0..15: every plane but the first
+    begins at every offset of a 16-byte line, and the last group is
+    partial at every N % 4."""
+    m = 8
+    for n in range(n0, n0 + 16):
+        quals_t, present, zero, base, thr_mod, thr_can = _state_case(n, m, n)
+        tm, tc = state.thresholds_to_tensors(thr_mod, thr_can, m)
+        args = [torch.from_numpy(a).to(cuda_device)
+                for a in (quals_t, present, zero, base)]
+        before = state.STATE_KERNEL_LAUNCHES
+        got = state.threshold_state_quals_t(*args, tm, tc)
+        assert state.STATE_KERNEL_LAUNCHES == before + 1
+        assert torch.equal(
+            got, state.threshold_state_quals_t_plain(*args, tm, tc)), n
+
+
+@pytest.mark.cuda
+def test_state_f32_misaligned_views_raise(cuda_device):
+    """The f32 rows kernel loads rows 16 bytes at a time, and at M = 1 four
+    bases at a time: a probs view at a 4-byte offset raises, naming the
+    16-byte rule, and so does a base at an odd offset at M = 1; at M = 2 an
+    odd base is taken, and so is a runtime-M probs view at a 4-byte offset;
+    the same values at an aligned address are taken."""
+    n = 4111
+    rng = np.random.default_rng(5)
+
+    def odd(t):
+        """t's values in a view one element past an aligned allocation."""
+        buf = torch.zeros(t.numel() + 4, dtype=t.dtype, device=cuda_device)
+        view = buf[1:1 + t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+
+    for m in (1, 2, 9):
+        probs, base, thr_mod, thr_can = _arbitrary_rows(rng, n, m)
+        tm, tc = state.thresholds_to_tensors(thr_mod, thr_can, m)
+        p, b = (torch.from_numpy(a).to(cuda_device) for a in (probs, base))
+        want = state.threshold_state_f32_plain(p, b, tm, tc)
+        assert torch.equal(state.threshold_state_f32(p, b, tm, tc), want)
+        if m in state.F32_CLASSES:
+            with pytest.raises(ValueError,
+                               match="probs is not 16-byte aligned"):
+                state.threshold_state_f32(odd(p), b, tm, tc)
+        else:
+            assert torch.equal(state.threshold_state_f32(odd(p), b, tm, tc),
+                               want)
+        if m == 1:
+            with pytest.raises(ValueError, match="base is not 4-byte aligned"):
+                state.threshold_state_f32(p, odd(b), tm, tc)
+        else:
+            assert torch.equal(state.threshold_state_f32(p, odd(b), tm, tc),
+                               want)
+
+
+@pytest.mark.cuda
+def test_pileup_count_kernel_copies_a_misaligned_view(cuda_device):
+    """pileup_count_kernel takes a probs view at a 4-byte offset: it copies
+    the rows to an aligned tensor itself, and counts as the CPU does."""
+    rng = np.random.default_rng(12)
+    n, m, p = 50_001, 4, 2_000
+    cols = [rng.integers(0, p, n), rng.integers(0, 2, n),
+            rng.integers(0, 4, n), rng.integers(0, 3, n)]
+    probs, _, thr_mod, thr_can = _arbitrary_rows(rng, n, m)
+    cpu = [torch.from_numpy(a.astype(np.int32)) for a in cols]
+    valid = torch.ones(n, dtype=torch.bool)
+    tm, tc = torch.from_numpy(thr_mod), torch.from_numpy(thr_can)
+    kw = dict(num_positions=p, num_codes=m)
+    buf = torch.zeros(n * m + 4, dtype=torch.float32, device=cuda_device)
+    view = buf[1:1 + n * m].view(n, m)
+    view.copy_(torch.from_numpy(probs))
+    assert view.data_ptr() % 16
+    before = state.STATE_F32_KERNEL_LAUNCHES
+    got = counts.pileup_count_kernel(
+        *(a.to(cuda_device) for a in cpu), view, valid.to(cuda_device), tm,
+        tc, **kw)
+    assert state.STATE_F32_KERNEL_LAUNCHES == before + 1
+    want = counts.pileup_count_kernel(*cpu, torch.from_numpy(probs), valid,
+                                      tm, tc, **kw)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_collapse_pileup_on_cuda_equals_the_host_route(cuda_device, tmp_path,
+                                                       monkeypatch):
+    """``--ignore h`` leaves one code whose probabilities are not exact ML
+    values: on the card every tile with events launches kernel A's f32
+    entry at M = 1 once and its quals entry never, and the bedMethyl is the
+    host C++ route's."""
+    import filecmp
+
+    from modkit_tpu_torch.collapse import CollapseMethod
+    from modkit_tpu_torch.pileup.runner import PileupConfig, run_pileup
+    from modkit_tpu_torch.utils.synth import make_synthetic_modbam
+
+    bam = str(tmp_path / "s.bam")
+    make_synthetic_modbam(bam, n_reads=600, read_len=2000, coverage=20.0,
+                          seed=7)
+    outs = {}
+    for route, offload in (("cuda", "always"), ("host", "never")):
+        monkeypatch.setenv("MODKIT_TPU_OFFLOAD", offload)
+        outs[route] = str(tmp_path / f"{route}.bed")
+        before = (state.STATE_KERNEL_LAUNCHES,
+                  state.STATE_F32_KERNEL_LAUNCHES)
+        run_pileup(PileupConfig(
+            in_bam=bam, out=outs[route], interval_size=5_000,
+            no_filtering=True, suppress_progress=True, device="cuda",
+            collapse=[CollapseMethod("dist", ("h",))]))
+        launched = (state.STATE_KERNEL_LAUNCHES - before[0],
+                    state.STATE_F32_KERNEL_LAUNCHES - before[1])
+        if route == "cuda":
+            tiles = {int(line.split("\t", 2)[1]) // 5_000
+                     for line in open(outs[route])}
+            assert launched == (0, len(tiles)) and len(tiles) > 4
+        else:
+            assert launched == (0, 0)
+    assert filecmp.cmp(outs["cuda"], outs["host"], shallow=False)
 
 
 @pytest.mark.cuda

@@ -115,6 +115,54 @@ def test_f32_matches_xla_and_oracle(m):
     assert np.array_equal(got, want)
 
 
+def arbitrary_f32_case(rng, n, m):
+    """Arbitrary f32 rows, not the 1/256 grid of ``probs_of``: absent (−1),
+    0 and 1.0 values, values equal to their mod threshold, rows whose sum
+    exceeds 1, and canonical thresholds equal to some row's 1 − sum."""
+    probs = rng.random((n, m), dtype=np.float32) * np.float32(1.5 / m)
+    probs[rng.random((n, m)) < 0.15] = -1.0
+    probs[rng.random((n, m)) < 0.05] = 0.0
+    probs[rng.random((n, m)) < 0.02] = 1.0
+    base = rng.integers(0, 4, size=n).astype(np.uint8)
+    thr_mod = rng.random((m, 4), dtype=np.float32) * np.float32(0.6)
+    at_thr = rng.random((n, m)) < 0.1
+    probs = np.where(at_thr, thr_mod.T[base], probs).astype(np.float32)
+    # rows whose sum exceeds 1: every class present and at least 0.6
+    over = rng.random(n) < 0.05
+    probs[over] = np.float32(0.6) + rng.random((int(over.sum()), m),
+                                               dtype=np.float32)
+    thr_can = rng.random(4, dtype=np.float32) * np.float32(0.6)
+    prob_sum = np.zeros(n, dtype=np.float32)
+    for j in range(m):  # class order, as the call sums
+        prob_sum = prob_sum + np.where(probs[:, j] >= 0, probs[:, j],
+                                       np.float32(0))
+    canon = np.float32(1.0) - prob_sum
+    for b in range(4):
+        rows = np.flatnonzero((base == b) & (canon > 0))
+        if len(rows):
+            thr_can[b] = canon[rows[0]]
+    return probs, base, thr_mod, thr_can
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 8])
+def test_f32_plain_on_arbitrary_rows_matches_xla_and_oracle(m):
+    """The f32 entry's plain version (what every CUDA body of the f32 entry
+    is held to) equals the XLA function and the oracle on arbitrary f32
+    rows, ties at the thresholds included."""
+    rng = np.random.default_rng(500 + m)
+    n = 6001
+    probs, base, thr_mod, thr_can = arbitrary_f32_case(rng, n, m)
+    assert (probs.sum(axis=1) > 1).any() and (probs == -1).any()
+    assert (probs == 1.0).any() and (probs == 0.0).any()
+    assert (probs == thr_mod.T[base]).any()
+    want = oracle_states(probs, base, thr_mod, thr_can)
+    xla = np.asarray(xla_state_f32(probs, base, thr_mod, thr_can))
+    got = port_f32(probs, base, thr_mod, thr_can)
+    assert np.array_equal(xla, want)
+    assert np.array_equal(got, want)
+    assert {0, 1}.issubset(set(np.unique(got))) and got.max() >= 2
+
+
 @pytest.mark.parametrize("m", [2, 4])
 def test_f32_of_compact_encoding_equals_quals_t(m):
     """The f32 entry over the decoded probabilities gives the states of the
@@ -232,12 +280,18 @@ def test_quals_t_any_event_count_matches_xla_pallas_and_oracle(n, m):
         assert np.array_equal(pallas, want)
 
 
-def test_quals_constants_equal_the_cuda_source():
+def _csrc(name):
     import os
+
+    with open(os.path.join(os.path.dirname(state.__file__), os.pardir,
+                           "csrc", name)) as fh:
+        return fh.read()
+
+
+def test_quals_constants_equal_the_cuda_source():
     import re
 
-    src = open(os.path.join(os.path.dirname(state.__file__), os.pardir,
-                            "csrc", "state.cu")).read()
+    src = _csrc("state.cu")
     const = {k: int(v) for k, v in re.findall(
         r"constexpr int (k\w+) = (\d+);", src)}
     assert const["kGroup"] == state.QUALS_GROUP == 4  # one 4-byte load
@@ -246,3 +300,24 @@ def test_quals_constants_equal_the_cuda_source():
     assert "if constexpr (M > 4)" in src
     assert state.QUALS_GROUPED_CLASSES == tuple(
         m for m in state.QUALS_CLASSES if m <= 4)
+    # the f32 rows kernel: F32_GROUP events a thread at M = 1 (4-byte base
+    # loads), one above, its rows in 16-byte loads
+    assert const["kF32Group"] == state.F32_GROUP == 4
+    assert const["kF32Threads"] == state.F32_THREADS
+    assert "constexpr int G = M == 1 ? kF32Group : 1;" in src
+    assert state.F32_ALIGN == 16 and "float4" in src
+    for m in state.F32_CLASSES:
+        assert f"case {m}: return launch_f32<{m}>(" in src
+        assert f"case {m}: return launch_quals<{m}>(" in src
+
+
+@pytest.mark.parametrize("entry", ["mk_state_quals_t", "mk_state_f32"])
+def test_state_entries_take_the_argument_lists_the_wrapper_declares(entry):
+    """Each C entry of csrc/state.cu has as many parameters as
+    ops/kernels.py declares for it."""
+    from modkit_tpu_torch.ops import kernels
+
+    src = _csrc("state.cu")
+    head = src[src.index(f'extern "C" int {entry}('):]
+    params = head[head.index("(") + 1:head.index(")")]
+    assert len(params.split(",")) == len(kernels._SIGNATURES["state"][entry])
