@@ -15,9 +15,11 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
 3. the state kernel (``csrc/state.cu``) against its plain PyTorch version,
    exactly, on a real tile of the bench workload and on ragged sizes (N %
    16 takes every value, so planes 1.. start unaligned), for M in {1, 2,
-   4, 8} and both entries, the f32 entry also on arbitrary f32 rows, with
-   times and bounds; and the launch floor (the quals entry at N = 4096,
-   M = 1);
+   4, 8} and both entries, the f32 entry also on arbitrary f32 rows and on
+   views its rows kernel cannot load as they are (``probs`` at a 4-byte
+   offset at every M, ``base`` at an odd one at M = 1: one aligned copy
+   counted per such view), with times and bounds; and the launch floor
+   (the quals entry at N = 4096, M = 1);
 4. the count kernel (``csrc/counts.cu``) against its plain version,
    exactly, at the tile's shape with P = 100 000 and M in {2, 4, 8}, with
    ``torch.bincount`` over precomputed keys as the library yardstick; at
@@ -29,7 +31,7 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
    three rounds beside the two host routes (the native threshold pass
    under MODKIT_TPU_OFFLOAD=never, and ``use_device=False``), every run
    byte-equal; the state kernel's launches in each device run must equal
-   the tiles with events;
+   the tiles with events, with no aligned copy of a view;
 6. the count path: the Python event route (native decoder off) on a
    2 000-read modBAM, byte-equal to the host path, with count-kernel
    launches > 0.
@@ -98,7 +100,20 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
     under MODKIT_TPU_OFFLOAD=never and with ``use_device=False``, each mode
     byte-equal with its launches counted; then a 2 000-read modBAM with
     six mod codes (m_pad 8: the quals entry at M = 8) on ``cuda`` and under
-    ``never``, byte-equal, one launch per tile with events.
+    ``never``, byte-equal, one launch per tile with events (no aligned copy
+    in any of these runs);
+15. the all-C++ CPU baseline (``cpu_baseline.run_pileup_cpu``) over the
+    bench modBAM, with no filtering and with the estimate, byte-equal to
+    phase 5's cuda bedMethyls; then the measuring tools, each in its own
+    process: ``tools/bench.py`` at 5 000 reads (entropy, extract and dmr
+    at 1 000, one rep; its kernel rooflines at full size, warm and
+    L2-cold), every ``*_identical``/``*_equal*`` field of its JSON true
+    and kernel A launched on its ``always`` runs, then ``tools/
+    scale_bench.py`` at 20 000 reads and ``tools/multichip_model.py`` at
+    5 000 side by side, each exiting 0 with its JSON (the multichip
+    pileups over 1, 2, 4 and 8 listed devices byte-equal), and no tool
+    writing the repository's ``BENCH_SCALE_r05.json`` or
+    ``MULTICHIP_MODEL.json``.
 
 Before phase 3 it prints the card's measured peaks (``tools/true_bench.py``:
 HBM read and copy rates, bf16 ``torch.matmul`` rate) beside the data-sheet
@@ -200,6 +215,46 @@ def arbitrary_rows(rng, n: int, m: int, thr_mod, base):
         np.where(at_thr, thr_mod.T[col], probs), dtype=np.float32)
 
 
+def misaligned_views(rng, n: int, dev, check) -> None:
+    """Kernel A's f32 entry on views its rows kernel cannot load as they
+    are: ``probs`` one row element past an aligned allocation at M in {1,
+    2, 4, 8}, and at M = 1 ``base`` one byte past one, each equal to the
+    plain version with one aligned copy per such view counted."""
+    import numpy as np
+    import torch
+
+    from modkit_tpu_torch.ops import state
+
+    def odd(a):
+        t = torch.from_numpy(a).to(dev)
+        buf = torch.zeros(t.numel() + 16, dtype=t.dtype, device=dev)
+        view = buf[1:1 + t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+
+    for m in (1, 2, 4, 8):
+        base = rng.integers(0, 4, n).astype(np.uint8)
+        thr_mod = rng.random((m, 4), dtype=np.float32) * np.float32(0.8)
+        thr_can = rng.random(4, dtype=np.float32) * np.float32(0.8)
+        tm, tc = state.thresholds_to_tensors(thr_mod, thr_can, m)
+        rows = arbitrary_rows(rng, n, m, thr_mod, base)
+        aligned = [torch.from_numpy(a).to(dev) for a in (rows, base)]
+        cases = [("probs", odd(rows), aligned[1], 1)]
+        if m == 1:
+            cases += [("base", aligned[0], odd(base), 1),
+                      ("probs and base", odd(rows), odd(base), 2)]
+        for what, probs, b, copies in cases:
+            before = state.STATE_F32_COPIES
+            check(f"f32, misaligned {what}, M={m} N={n}",
+                  state.threshold_state_f32(probs, b, tm, tc),
+                  state.threshold_state_f32_plain(probs, b, tm, tc))
+            got = state.STATE_F32_COPIES - before
+            require(got == copies, f"f32 misaligned {what} at M={m}: "
+                                   f"{got} copies, want {copies}")
+    log(f"state f32 on misaligned views (probs at M in (1, 2, 4, 8), base "
+        f"at M = 1, N={n}): == plain, one aligned copy per such view")
+
+
 def phase_state(tile, dev) -> dict:
     """Kernel A against its plain version at every M in {1, 2, 4, 8}, on
     the bench tile and on ragged counts, each entry also on arbitrary f32
@@ -276,6 +331,7 @@ def phase_state(tile, dev) -> dict:
                 entries[entry_name, m] = dict(
                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     n=n, m=m)
+    misaligned_views(rng, n_main, dev, check)
     for entry in entries.values():
         entry["max_abs_err"] = worst
     log(f"state kernels == plain at M in (1, 2, 4, 8) on N in "
@@ -456,13 +512,15 @@ def tile_layers(tile, dev, reader) -> None:
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count, and the count of threshold sorts
-    on the card, to 0, just before a path runs."""
+    """Set every kernel's launch count, the f32 entry's count of aligned
+    copies and the count of threshold sorts on the card to 0, just before
+    a path runs."""
     from modkit_tpu_torch import thresholds
     from modkit_tpu_torch.ops import counts, lab_counts, state
 
     state.STATE_KERNEL_LAUNCHES = 0
     state.STATE_F32_KERNEL_LAUNCHES = 0
+    state.STATE_F32_COPIES = 0
     counts.COUNT_KERNEL_LAUNCHES = 0
     lab_counts.reset_launches()
     thresholds.CUDA_SORTS = 0
@@ -474,6 +532,14 @@ def read_sorts() -> int:
     from modkit_tpu_torch import thresholds
 
     return thresholds.CUDA_SORTS
+
+
+def read_copies() -> int:
+    """Aligned copies kernel A's f32 entry made of misaligned views since
+    reset_launches()."""
+    from modkit_tpu_torch.ops import state
+
+    return state.STATE_F32_COPIES
 
 
 def read_launches() -> tuple[int, int, int]:
@@ -548,6 +614,8 @@ def phase_main(bam: str, work: str) -> int:
                 n_launch, n_f32, n_count = read_launches()
                 require(n_count == 0 and n_f32 == 0,
                         f"{mode}: {route} ran the f32 state or count kernel")
+                require(read_copies() == 0,
+                        f"{mode}: {route} copied {read_copies()} views")
                 times[route].append(t)
                 if first is None:
                     first = out
@@ -566,7 +634,8 @@ def phase_main(bam: str, work: str) -> int:
                 else:
                     require(n_launch == 0, f"{mode}: {route} launched")
         log(f"main path {mode}: rows {stats['rows']}, tiles {n_tiles}, "
-            f"{n_tiles} state launches per cuda run, byte-equal on all "
+            f"{n_tiles} state launches and no aligned copy per cuda run, "
+            f"byte-equal on all "
             f"{MAIN_ROUNDS * len(routes)} runs; reads/s median (runs): "
             + "; ".join(
                 f"{r} {BENCH_READS / statistics.median(ts):.0f} ("
@@ -1245,6 +1314,7 @@ def phase_collapse_and_six_codes(bam: str, work: str) -> dict:
         finally:
             os.environ["MODKIT_TPU_OFFLOAD"] = "always"
         require(stats["rows"] > 0, f"{out}: no rows")
+        require(read_copies() == 0, f"{out}: {read_copies()} aligned copies")
         return t, read_launches()
 
     launches = {}
@@ -1291,6 +1361,154 @@ def phase_collapse_and_six_codes(bam: str, work: str) -> dict:
         "byte-equal to host C++; s "
         + ", ".join(f"{r} {t:.3f}" for r, t in secs.items()))
     return dict(f32_m1=launches["ignore h"], quals_m8=launches["six codes"])
+
+
+# phase 15: the measuring tools at a cut size, each in its own process (the
+# bench's kernel rooflines stay at their full size), with their time limits
+TOOLS = {
+    "bench": (dict(MODKIT_BENCH_READS="5000",
+                   MODKIT_BENCH_ENTROPY_READS="1000",
+                   MODKIT_BENCH_REPS="1"), 400),
+    "scale_bench": (dict(SCALE_READS="20000"), 300),
+    "multichip_model": (dict(MC_READS="5000"), 300),
+}
+# the TPU-era files the original tools overwrite; the port's never do
+TPU_RESULT_FILES = ("BENCH_SCALE_r05.json", "MULTICHIP_MODEL.json")
+
+
+def phase_cpu_baseline(bam: str, work: str) -> None:
+    """Phase 15, step 1: ``cpu_baseline.run_pileup_cpu`` over the bench
+    modBAM (its estimate sorting on the host, MODKIT_TPU_OFFLOAD=never),
+    byte-equal to phase 5's first cuda bedMethyl of each mode, no kernel
+    launched."""
+    from modkit_tpu_torch.cpu_baseline import run_pileup_cpu
+
+    secs = {}
+    os.environ["MODKIT_TPU_OFFLOAD"] = "never"
+    try:
+        for mode, kw in (("no_filtering", {}),
+                         ("estimate", dict(no_filtering=False))):
+            out = os.path.join(work, f"cpu_baseline.{mode}.bed")
+            reset_launches()
+            t0 = time.perf_counter()
+            run_pileup_cpu(bam, out, **kw)
+            secs[mode] = time.perf_counter() - t0
+            require(read_launches() == (0, 0, 0),
+                    f"CPU baseline {mode} launched a kernel")
+            same_files(os.path.join(work, f"{mode}.0.cuda.bed"), out,
+                       f"CPU baseline {mode}")
+    finally:
+        os.environ["MODKIT_TPU_OFFLOAD"] = "always"
+    log("CPU baseline (all C++, every core): byte-equal to the cuda route; "
+        + ", ".join(f"{mode} {BENCH_READS / t:.0f} reads/s ({t:.2f} s)"
+                    for mode, t in secs.items()))
+
+
+def flags_true(obj, path: str = "") -> list:
+    """The paths of every ``*_identical`` or ``*_equal*`` field of a JSON
+    object that is not true."""
+    bad = []
+    if isinstance(obj, dict):
+        for key, val in obj.items():
+            if (key.endswith("_identical") or "_equal" in key) and \
+                    val is not True:
+                bad.append(path + key)
+            bad += flags_true(val, f"{path}{key}.")
+    return bad
+
+
+def start_tool(name: str, work: str):
+    """``python -m modkit_tpu_torch.tools.<name>`` on the card with its
+    TOOLS knobs, stdout and stderr to files of ``work``; returns (process,
+    stdout path, stderr path, limit s)."""
+    knobs, limit = TOOLS[name]
+    env = dict(os.environ, TMPDIR=work, **knobs)
+    env.pop("MODKIT_TPU_OFFLOAD", None)  # each tool runs under its own modes
+    out, err = (os.path.join(work, f"{name}.{x}") for x in ("out", "err"))
+    with open(out, "w") as fo, open(err, "w") as fe:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", f"modkit_tpu_torch.tools.{name}"],
+            cwd=HERE, env=env, stdout=fo, stderr=fe)
+    return proc, out, err, limit
+
+
+def finish_tool(name: str, started) -> dict:
+    """Wait for a start_tool process; require exit 0 and parse the JSON
+    line it printed last."""
+    proc, out, err, limit = started
+    try:
+        rc = proc.wait(timeout=limit)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(err) as fh:
+        tail = fh.read()[-4000:]
+    require(rc == 0, f"tools.{name}: exit {rc}:\n{tail}")
+    with open(out) as fh:
+        lines = fh.read().strip().splitlines()
+    require(bool(lines), f"tools.{name}: no output:\n{tail}")
+    return json.loads(lines[-1])
+
+
+def phase_tools(work: str) -> None:
+    """Phase 15, step 2: the bench tool at its cut size (every identical
+    and equal field true, kernel A launched on the ``always`` runs, the
+    rooflines at full size), then the scale and multichip tools side by
+    side (exit 0 with their JSON, every multichip output byte-equal); no
+    tool writes the repository's TPU-era result files."""
+    before = {}
+    for name in TPU_RESULT_FILES:
+        with open(os.path.join(HERE, name), "rb") as fh:
+            before[name] = fh.read()
+    t0 = time.perf_counter()
+    got = finish_tool("bench", start_tool("bench", work))
+    t_bench = time.perf_counter() - t0
+    extra = got["extra"]
+    require(not flags_true(got), f"bench: not true: {flags_true(got)}")
+    require(extra["forced_state_launches"] > 0,
+            "bench: kernel A not launched on the always runs")
+    roof = extra["kernel_roofline"]
+    require(roof is not None, "bench: no kernel rooflines on the card")
+    st, ct = roof["threshold_state"], roof["pileup_count_kernel"]
+    log(f"bench tool ({TOOLS['bench'][0]}): {t_bench:.1f} s; auto "
+        f"{got['value']:.1f} reads/s, route {extra['auto_route']} "
+        f"({extra['auto_state_launches']} kernel A launches), always "
+        f"{extra['device_forced_reads_per_s']:.1f} ("
+        f"{extra['forced_state_launches']} launches), CPU baseline "
+        f"{extra['cpu_baseline_reads_per_s']:.1f}; rooflines (events/s "
+        f"warm / L2-cold, % of {roof['hbm_read_GBps']:.1f} GB/s): state "
+        f"{st['events_per_s']:.4g} / {st['cold_events_per_s']:.4g} "
+        f"({st['pct_of_hbm_read_bound']:.1f} / "
+        f"{st['cold_pct_of_hbm_read_bound']:.1f}), matmul "
+        f"{ct['matmul_events_per_s']:.4g} / "
+        f"{ct['matmul_cold_events_per_s']:.4g}, pipeline "
+        f"{ct['pipeline_events_per_s']:.4g} / "
+        f"{ct['pipeline_cold_events_per_s']:.4g}; over the HBM rate: "
+        f"{roof['over_hbm_bound'] or 'none'}")
+    t0 = time.perf_counter()
+    started = {name: start_tool(name, work)
+               for name in ("scale_bench", "multichip_model")}
+    results = {name: finish_tool(name, s) for name, s in started.items()}
+    scale, mc = results["scale_bench"], results["multichip_model"]
+    require(scale["config"]["n_reads"] == int(
+        TOOLS["scale_bench"][0]["SCALE_READS"]) and scale["reads_per_s"] > 0,
+        f"scale_bench: {scale}")
+    require(mc["outputs_identical"] is True
+            and set(mc["virtual_mesh_wall_s"]) == {"1", "2", "4", "8"},
+            f"multichip_model: {mc}")
+    for name in TPU_RESULT_FILES:
+        with open(os.path.join(HERE, name), "rb") as fh:
+            require(fh.read() == before[name], f"a tool wrote {name}")
+    log(f"scale and multichip tools side by side: "
+        f"{time.perf_counter() - t0:.1f} s; scale {scale['config']} "
+        f"{scale['reads_per_s']:.1f} reads/s, journal overhead "
+        f"{scale['journal_overhead_pct']:.1f}%, peak RSS "
+        f"{scale['peak_rss_mb']:.1f} MB; multichip feed "
+        + json.dumps(mc["host_feed_curve"]) + ", wall s over N devices "
+        + json.dumps(mc["virtual_mesh_wall_s"]) + " (" +
+        json.dumps(mc["virtual_mesh_devices"]["8"]) + "), byte-equal; "
+        f"{', '.join(TPU_RESULT_FILES)} untouched")
 
 
 def phase_peaks() -> None:
@@ -1731,6 +1949,11 @@ def main() -> int:
         t_phase = time.perf_counter()
         collapse = phase_collapse_and_six_codes(bam, work)
         log(f"collapse and six-code phase: "
+            f"{time.perf_counter() - t_phase:.1f} s on {card}")
+        t_phase = time.perf_counter()
+        phase_cpu_baseline(bam, work)
+        phase_tools(work)
+        log(f"CPU baseline and tools phase: "
             f"{time.perf_counter() - t_phase:.1f} s on {card}")
     finally:
         shutil.rmtree(work, ignore_errors=True)

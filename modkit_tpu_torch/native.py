@@ -1,14 +1,16 @@
 """ctypes bindings to the native C++ runtime (native/modkit_native.cpp).
 
-The port's own trimmed copy of ``modkit_tpu.native``: it holds only what the
-pileup, threshold sampling, the modBAM rewriters, ``extract``, ``dmr`` and
-``entropy`` use — BAM record parse + MM/ML/MN decode + per-tile pileup
+The port's own copy of ``modkit_tpu.native``: it holds what the pileup,
+the all-C++ CPU baseline (``cpu_baseline.py``), threshold sampling, the
+modBAM rewriters, ``extract``, ``dmr``, ``entropy`` and the measuring tools
+(``tools/``) use — BAM record parse + MM/ML/MN decode + per-tile pileup
 event extraction, the host threshold/histogram passes, native row formatting,
 BGZF compression, CRAM container decode (``cram_decode_container``), the
 adjust/call-mods/update-tags span engine (``adjust_stream``), the extract
 TSV stream (``extract_full_stream``), the columnar bedMethyl parse
-(``parse_bedmethyl_columns``) and entropy's window engine (``me_entropy``,
-``EntropyBatch``) — in multithreaded C++.
+(``parse_bedmethyl_columns``), entropy's window engine (``me_entropy``,
+``EntropyBatch``) and the staged decode micro-bench (``bench_decode``) — in
+multithreaded C++.
 
 The shared library builds on first use with ``g++`` from the repository's
 ``native/modkit_native.cpp`` into ``modkit_tpu_torch/_build/``, under a file
@@ -199,14 +201,23 @@ def load():
                 ctypes.POINTER(ctypes.c_int32),
                 ctypes.POINTER(ctypes.c_float),
             ]
-            lib.mk_export_quals_t.restype = ctypes.c_int32
-            lib.mk_export_quals_t.argtypes = [
+            lib.mk_export_quals.restype = ctypes.c_int32
+            lib.mk_export_quals.argtypes = [
                 ctypes.POINTER(_MkTileOut),
                 ctypes.c_int64, ctypes.c_int32,
                 ctypes.POINTER(ctypes.c_uint8),
                 ctypes.POINTER(ctypes.c_uint8),
                 ctypes.POINTER(ctypes.c_uint8),
                 ctypes.POINTER(ctypes.c_uint8),
+            ]
+            lib.mk_export_quals_t.restype = ctypes.c_int32
+            lib.mk_export_quals_t.argtypes = lib.mk_export_quals.argtypes
+            lib.mk_bincount_states.restype = None
+            lib.mk_bincount_states.argtypes = [
+                ctypes.POINTER(_MkTileOut),
+                ctypes.POINTER(ctypes.c_uint8),
+                ctypes.c_int32,
+                ctypes.POINTER(ctypes.c_int32),
             ]
             lib.mk_bincount_full.restype = None
             lib.mk_bincount_full.argtypes = [
@@ -288,6 +299,11 @@ def load():
             lib.mk_bench_event_rate.restype = ctypes.c_double
             lib.mk_bench_event_rate.argtypes = [
                 ctypes.c_int64, ctypes.c_int32,
+            ]
+            lib.mk_bench_decode.restype = ctypes.c_double
+            lib.mk_bench_decode.argtypes = [
+                ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32,
+                ctypes.c_int32,
             ]
             lib.mk_decode_tile_bgzf.restype = ctypes.c_int32
             lib.mk_decode_tile_bgzf.argtypes = [
@@ -701,6 +717,24 @@ class NativeTile:
         )
         return rpos, strand, base, probs
 
+    def export_quals(self, n_pad: int, m_pad: int):
+        """Events-major compact u8 export (quals [n_pad, m_pad], present,
+        zero, base), or None when some probability is not an exact
+        ML-derived value (collapse / merged sub-tags) or m > 8."""
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        quals = np.empty((n_pad, m_pad), dtype=np.uint8)
+        present = np.empty(n_pad, dtype=np.uint8)
+        zero = np.empty(n_pad, dtype=np.uint8)
+        base = np.empty(n_pad, dtype=np.uint8)
+        ok = self._lib.mk_export_quals(
+            ctypes.byref(self._out), n_pad, m_pad,
+            quals.ctypes.data_as(u8p), present.ctypes.data_as(u8p),
+            zero.ctypes.data_as(u8p), base.ctypes.data_as(u8p),
+        )
+        if not ok:
+            return None
+        return quals, present, zero, base
+
     def export_quals_t(self, n_pad: int, m_pad: int):
         """Class-major (transposed) compact export for the state kernel
         (ops/state.py); None when probs are not exact ML values or m > 8."""
@@ -747,6 +781,21 @@ class NativeTile:
             states.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
             m_pad,
             self._p,
+            counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        )
+        return counts
+
+    def bincount_states(self, states: np.ndarray, m_pad: int) -> np.ndarray:
+        """Histogram per-event states into the mod-call count tensor
+        [p, 2, 1 + 4*(m_pad+1)] (the CPU baseline's count,
+        ``cpu_baseline.py``)."""
+        km = 1 + 4 * (m_pad + 1)
+        counts = np.zeros((self._p, 2, km), dtype=np.int32)
+        states = np.ascontiguousarray(states, dtype=np.uint8)
+        self._lib.mk_bincount_states(
+            ctypes.byref(self._out),
+            states.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            m_pad,
             counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         )
         return counts
@@ -1679,3 +1728,14 @@ class EntropyBatch:
             self.close()
         except Exception:
             pass
+
+
+def bench_decode(rec: bytes, reps: int = 2000, stage: int = 4) -> float:
+    """Staged single-thread decode micro-bench (native mk_bench_decode) of
+    one BAM record ``rec``: stage 0 scan_aux, 1 +forward_seq, 2
+    +parse_mm_tag, 3 +decode_read_mods, 4 full decode_read. Returns
+    reads/s, 0.0 when the native library is unavailable."""
+    lib = load()
+    if lib is None:
+        return 0.0
+    return float(lib.mk_bench_decode(rec, len(rec), reps, stage))

@@ -30,11 +30,12 @@ Each wrapper runs the plain PyTorch version for tensors on the CPU and
 launches the kernel for tensors on a CUDA device; anything else raises. The
 thresholds travel by value, so the kernel takes them as CPU tensors. The
 quals entry refuses an input whose base pointer is not ``QUALS_GROUP``-byte
-aligned; at M in ``F32_CLASSES`` the f32 entry refuses a ``probs`` that
-is not ``F32_ALIGN``-byte aligned, and at M = 1 a ``base`` that is not
-``F32_GROUP``-byte aligned (``engine._upload`` gives every array a
-16-byte-aligned slot; a view at another offset needs a copy, as
-``ops/counts.pileup_count_kernel`` makes).
+aligned. The f32 entry takes any view: at M in ``F32_CLASSES`` the rows
+kernel reads ``probs`` in ``F32_ALIGN``-byte loads, and at M = 1 ``base`` in
+``F32_GROUP``-byte loads, so the wrapper gives a view at another offset an
+aligned copy (a new allocation) and counts it in ``STATE_F32_COPIES``.
+``engine._upload`` gives every array a 16-byte-aligned slot, so the
+engine's route copies nothing.
 """
 
 from __future__ import annotations
@@ -48,6 +49,8 @@ import torch
 # and the f32 entry's
 STATE_KERNEL_LAUNCHES = 0
 STATE_F32_KERNEL_LAUNCHES = 0
+# aligned copies the f32 entry made of misaligned views in this process
+STATE_F32_COPIES = 0
 _count_lock = threading.Lock()
 
 # class counts of the quals entry; the f32 and count entries take any M up
@@ -67,6 +70,17 @@ F32_CLASSES = (1, 2, 4, 8)
 F32_GROUP = 4
 F32_THREADS = 256
 F32_ALIGN = 16
+
+
+def _aligned(t: torch.Tensor, align: int) -> torch.Tensor:
+    """``t``, or a copy of it at a new (aligned) allocation when its base
+    pointer is not ``align``-byte aligned; counts the copy."""
+    global STATE_F32_COPIES
+    if t.data_ptr() % align == 0:
+        return t
+    with _count_lock:
+        STATE_F32_COPIES += 1
+    return t.clone()
 
 
 def _count_launch(f32: bool) -> None:
@@ -231,8 +245,8 @@ def threshold_state_quals_t(quals_t, present, zero, base, thr_mod, thr_can):
 
 def threshold_state_f32(probs, base, thr_mod, thr_can):
     """u8 [N] states from events-major f32 ``probs`` [N, M] (−1 = absent)
-    and u8 [N] ``base``; on CUDA at M in ``F32_CLASSES`` ``probs`` is
-    ``F32_ALIGN``-byte aligned, and at M = 1 ``base`` ``F32_GROUP``-byte."""
+    and u8 [N] ``base``, contiguous views at any offset (on CUDA one the
+    rows kernel cannot load is copied first, see ``_aligned``)."""
     if probs.device.type == "cpu":
         return threshold_state_f32_plain(probs, base, thr_mod, thr_can)
     n, m = probs.shape
@@ -246,15 +260,14 @@ def threshold_state_f32(probs, base, thr_mod, thr_can):
     out = torch.empty(n, dtype=torch.uint8, device=dev)
     if n == 0:
         return out
-    from .kernels import check_aligned, check_launch, kernel_lib
+    from .kernels import check_launch, kernel_lib
 
     # the rows kernel's 16-byte row loads, and at M = 1 its 4-byte loads of
     # F32_GROUP bases
     if m in F32_CLASSES:
-        check_aligned("threshold_state_f32", {"probs": probs},
-                      align=F32_ALIGN)
+        probs = _aligned(probs, F32_ALIGN)
     if m == 1:
-        check_aligned("threshold_state_f32", {"base": base}, align=F32_GROUP)
+        base = _aligned(base, F32_GROUP)
     lib = kernel_lib("state")
     tm = thr_mod.contiguous()
     tc = thr_can.contiguous()

@@ -22,6 +22,7 @@ COPIES = (
     "bedmethyl.py",
     "caller.py",
     "charts.py",
+    "cpu_baseline.py",
     "collapse.py",
     "errors.py",
     "genome_positions.py",

@@ -2,7 +2,8 @@
 
 Kernel A (state: the quals entry for M in {1, 2, 4, 8}, the f32 entry for
 any M up to ``MAX_CLASSES``, on arbitrary f32 rows and ragged counts, and
-its alignment rules) and kernel B
+its alignment rules: the quals entry refuses a misaligned input, the f32
+entry copies one) and kernel B
 (counts, any M; every cell written, out-of-range events dropped), with a
 9-code and a collapsed (``--ignore h``) pileup on the card against the
 host route; a CRAM pileup on the card
@@ -11,7 +12,8 @@ host route; a CRAM pileup on the card
 (each launch of kernel A's f32 entry counted); a pileup over ``cuda:0``
 listed 1 and 4 times, and a two-process shard run on the one card; and the
 count-kernel lab's kernels (``ops/lab_counts.py``) against their plain
-versions and the oracle.
+versions and the oracle; and the bench tool's roofline bodies
+(``tools/bench.kernel_rooflines``) against theirs, timed.
 
 The tests marked ``cuda`` need an NVIDIA GPU (a CUDA kernel has no CPU
 mode) and skip without one; on a machine with a card run them with
@@ -195,10 +197,11 @@ def test_state_quals_m8_at_every_ragged_tail(cuda_device, n0):
 @pytest.mark.cuda
 def test_state_f32_misaligned_views_raise(cuda_device):
     """The f32 rows kernel loads rows 16 bytes at a time, and at M = 1 four
-    bases at a time: a probs view at a 4-byte offset raises, naming the
-    16-byte rule, and so does a base at an odd offset at M = 1; at M = 2 an
-    odd base is taken, and so is a runtime-M probs view at a 4-byte offset;
-    the same values at an aligned address are taken."""
+    bases at a time; the wrapper gives a view it cannot load so an aligned
+    copy and raises on none: a probs view at a 4-byte offset at M in {1, 2,
+    4, 8}, a base at an odd offset at M = 1, each equal to the plain
+    version with one copy counted; an odd base at M > 1 and a runtime-M
+    probs view are taken as they are, with no copy."""
     n = 4111
     rng = np.random.default_rng(5)
 
@@ -209,31 +212,29 @@ def test_state_f32_misaligned_views_raise(cuda_device):
         view.copy_(t)
         return view
 
-    for m in (1, 2, 9):
+    for m in (1, 2, 4, 8, 9):
         probs, base, thr_mod, thr_can = _arbitrary_rows(rng, n, m)
         tm, tc = state.thresholds_to_tensors(thr_mod, thr_can, m)
         p, b = (torch.from_numpy(a).to(cuda_device) for a in (probs, base))
         want = state.threshold_state_f32_plain(p, b, tm, tc)
-        assert torch.equal(state.threshold_state_f32(p, b, tm, tc), want)
-        if m in state.F32_CLASSES:
-            with pytest.raises(ValueError,
-                               match="probs is not 16-byte aligned"):
-                state.threshold_state_f32(odd(p), b, tm, tc)
-        else:
-            assert torch.equal(state.threshold_state_f32(odd(p), b, tm, tc),
-                               want)
-        if m == 1:
-            with pytest.raises(ValueError, match="base is not 4-byte aligned"):
-                state.threshold_state_f32(p, odd(b), tm, tc)
-        else:
-            assert torch.equal(state.threshold_state_f32(p, odd(b), tm, tc),
-                               want)
+        for pv, bv, copies in (
+                (p, b, 0),
+                (odd(p), b, int(m in state.F32_CLASSES)),
+                (p, odd(b), int(m == 1)),
+                (odd(p), odd(b), int(m in state.F32_CLASSES) + (m == 1))):
+            before = state.STATE_F32_COPIES
+            launches = state.STATE_F32_KERNEL_LAUNCHES
+            assert torch.equal(state.threshold_state_f32(pv, bv, tm, tc),
+                               want), (m, copies)
+            assert state.STATE_F32_COPIES == before + copies, m
+            assert state.STATE_F32_KERNEL_LAUNCHES == launches + 1
 
 
 @pytest.mark.cuda
 def test_pileup_count_kernel_copies_a_misaligned_view(cuda_device):
-    """pileup_count_kernel takes a probs view at a 4-byte offset: it copies
-    the rows to an aligned tensor itself, and counts as the CPU does."""
+    """pileup_count_kernel takes a probs view at a 4-byte offset: kernel A's
+    f32 entry copies the rows to an aligned tensor (one copy counted), and
+    the counts equal the CPU's."""
     rng = np.random.default_rng(12)
     n, m, p = 50_001, 4, 2_000
     cols = [rng.integers(0, p, n), rng.integers(0, 2, n),
@@ -248,13 +249,38 @@ def test_pileup_count_kernel_copies_a_misaligned_view(cuda_device):
     view.copy_(torch.from_numpy(probs))
     assert view.data_ptr() % 16
     before = state.STATE_F32_KERNEL_LAUNCHES
+    copies = state.STATE_F32_COPIES
     got = counts.pileup_count_kernel(
         *(a.to(cuda_device) for a in cpu), view, valid.to(cuda_device), tm,
         tc, **kw)
     assert state.STATE_F32_KERNEL_LAUNCHES == before + 1
+    assert state.STATE_F32_COPIES == copies + 1
     want = counts.pileup_count_kernel(*cpu, torch.from_numpy(probs), valid,
                                       tm, tc, **kw)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_bench_rooflines_equal_plain_and_beat_it(cuda_device):
+    """The bench tool's three roofline bodies (kernel A's f32 entry, the
+    rep8 histogram, kernel B) at its full shape: each equal to its plain
+    version and the oracle, each reading within the card's HBM rate or
+    flagged, and each kernel's warm time under its plain version's."""
+    from modkit_tpu_torch.tools import bench
+
+    roof = bench.kernel_rooflines(link_bw=25e9, reps=5)
+    st, ct = roof["threshold_state"], roof["pileup_count_kernel"]
+    assert st["outputs_equal_plain"] and st["cold_copies"] >= 2
+    assert ct["outputs_equal_numpy_oracle"] and ct["matmul_equal_plain"]
+    assert ct["pipeline_equal_plain"]
+    assert st["cold_copies"] * bench.ROOF_EVENTS * st["bytes_per_event_hbm"] \
+        >= 4 * roof["l2_bytes"]
+    for reading, prefix in ((st, ""), (ct, "matmul_"), (ct, "pipeline_")):
+        assert reading[prefix + "ms"] < reading[prefix + "plain_ms"], prefix
+    for key in ("pct_of_hbm_read_bound", "cold_pct_of_hbm_read_bound"):
+        if st[key] > 100.0:
+            assert any(x.startswith("threshold_state")
+                       for x in roof["over_hbm_bound"])
 
 
 @pytest.mark.cuda

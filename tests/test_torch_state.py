@@ -254,6 +254,24 @@ def test_non_cpu_tensor_launches_or_raises():
         )
 
 
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 4])
+def test_f32_entry_copies_only_a_view_it_cannot_load(offset):
+    """The f32 entry's alignment rule (``state._aligned``, run before a
+    launch): a view whose base pointer is off ``F32_ALIGN`` becomes an
+    aligned copy with the same values, counted in ``STATE_F32_COPIES``; an
+    aligned one is passed through, uncounted."""
+    buf = torch.arange(2 * 40 + 8, dtype=torch.float32)
+    assert buf.data_ptr() % state.F32_ALIGN == 0
+    view = buf[offset:offset + 80].view(40, 2)
+    before = state.STATE_F32_COPIES
+    got = state._aligned(view, state.F32_ALIGN)
+    assert torch.equal(got, view) and got.is_contiguous()
+    assert got.data_ptr() % state.F32_ALIGN == 0
+    misaligned = offset % 4 != 0
+    assert (got is view) == (not misaligned)
+    assert state.STATE_F32_COPIES == before + misaligned
+
+
 @pytest.mark.parametrize("m", [1, 8])
 @pytest.mark.parametrize("n", [15, 16, 17, 4111, 33 * LANES])
 def test_quals_t_any_event_count_matches_xla_pallas_and_oracle(n, m):
