@@ -18,8 +18,9 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
    4, 8} and both entries, the f32 entry also on arbitrary f32 rows and on
    views its rows kernel cannot load as they are (``probs`` at a 4-byte
    offset at every M, ``base`` at an odd one at M = 1: one aligned copy
-   counted per such view), with times and bounds; and the launch floor
-   (the quals entry at N = 4096, M = 1);
+   counted per such view), with times (warm, and L2-cold over copies of
+   the inputs that hold four times the L2 together), bytes and bounds;
+   and the launch floor (the quals entry at N = 4096, M = 1);
 4. the count kernel (``csrc/counts.cu``) against its plain version,
    exactly, at the tile's shape with P = 100 000 and M in {2, 4, 8}, with
    ``torch.bincount`` over precomputed keys as the library yardstick; at
@@ -31,7 +32,8 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
    three rounds beside the two host routes (the native threshold pass
    under MODKIT_TPU_OFFLOAD=never, and ``use_device=False``), every run
    byte-equal; the state kernel's launches in each device run must equal
-   the tiles with events, with no aligned copy of a view;
+   the tiles with events, with no aligned copy of a view; then the pinned
+   blocks PyTorch's caching host allocator holds;
 6. the count path: the Python event route (native decoder off) on a
    2 000-read modBAM, byte-equal to the host path, with count-kernel
    launches > 0.
@@ -109,11 +111,15 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
     at 1 000, one rep; its kernel rooflines at full size, warm and
     L2-cold), every ``*_identical``/``*_equal*`` field of its JSON true
     and kernel A launched on its ``always`` runs, then ``tools/
-    scale_bench.py`` at 20 000 reads and ``tools/multichip_model.py`` at
-    5 000 side by side, each exiting 0 with its JSON (the multichip
-    pileups over 1, 2, 4 and 8 listed devices byte-equal), and no tool
-    writing the repository's ``BENCH_SCALE_r05.json`` or
-    ``MULTICHIP_MODEL.json``.
+    scale_bench.py`` at 20 000 reads on ``cuda`` and with ``--device
+    cpu`` and ``tools/multichip_model.py`` at 5 000 side by side, each
+    exiting 0 with its JSON (the multichip pileups over 1, 2, 4 and 8
+    listed devices byte-equal; each scale run's host memory printed: RSS
+    after each stage, the phases' peaks of RSS and of the BAM's mapped
+    pages, the pinned blocks; on ``cuda`` the journal pileup may leave at
+    most 256 MB more RSS than the default one, and the peak may exceed
+    the host route's by at most 512 MB), and no tool writing the
+    repository's ``BENCH_SCALE_r05.json`` or ``MULTICHIP_MODEL.json``.
 
 Before phase 3 it prints the card's measured peaks (``tools/true_bench.py``:
 HBM read and copy rates, bf16 ``torch.matmul`` rate) beside the data-sheet
@@ -198,6 +204,9 @@ def middle_tile(reader):
 # in 4096..4111, so the quals planes 1.. and the f32 entry's last group
 # start at every offset
 STATE_RAGGED = (1, 127, 128 * 1000 + 3, *range(4096, 4112))
+# phase 3's L2-cold timing: at about 0.04 ms of host time a call, 256
+# calls enqueue well inside the 25 ms sleep cuda_time_ms queues first
+COLD_CALLS = 256
 
 
 def arbitrary_rows(rng, n: int, m: int, thr_mod, base):
@@ -265,10 +274,12 @@ def phase_state(tile, dev) -> dict:
     import torch
 
     from modkit_tpu_torch.ops import state
+    from modkit_tpu_torch.tools.bench import _clones, _n_copies, _timed_copies
     from modkit_tpu_torch.tools.true_bench import cuda_time_ms
 
     rng = np.random.default_rng(7)
     n_main = tile.n_events
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
     worst = 0
 
     def check(what: str, got, want) -> None:
@@ -305,14 +316,16 @@ def phase_state(tile, dev) -> dict:
             check(f"f32, arbitrary rows, M={m} N={n}",
                   state.threshold_state_f32(rows_d, gpu[3], tm, tc),
                   state.threshold_state_f32_plain(rows_d, gpu[3], tm, tc))
-            for entry_name, kern, plain in (
+            for entry_name, kern, plain, inputs in (
                 ("quals_t",
                  lambda: state.threshold_state_quals_t(*gpu, tm, tc),
-                 lambda: state.threshold_state_quals_t_plain(*gpu, tm, tc)),
+                 lambda: state.threshold_state_quals_t_plain(*gpu, tm, tc),
+                 gpu),
                 ("f32",
                  lambda: state.threshold_state_f32(probs_d, gpu[3], tm, tc),
                  lambda: state.threshold_state_f32_plain(
-                     probs_d, gpu[3], tm, tc)),
+                     probs_d, gpu[3], tm, tc),
+                 (probs_d, gpu[3])),
             ):
                 check(f"{entry_name}, M={m} N={n}", kern(), plain())
                 if n != n_main:
@@ -321,16 +334,30 @@ def phase_state(tile, dev) -> dict:
                 plain_ms, _ = cuda_time_ms(plain, 10)
                 if entry_name == "quals_t":
                     nbytes = n * (m + 3) + n
+                    launch = state.threshold_state_quals_t
                 else:
                     nbytes = n * (4 * m + 1) + n
+                    launch = state.threshold_state_f32
+                # L2-cold: each call reads the next of copies that hold
+                # four times the L2 together (warm back-to-back launches
+                # find the tile's inputs in L2); COLD_CALLS calls in all,
+                # so their enqueueing stays inside cuda_time_ms's sleep
+                # kernel and the card runs them back to back
+                copies = _clones(inputs, _n_copies(nbytes, l2))
+                _, cold_ms = _timed_copies(
+                    lambda *x: launch(*x, tm, tc), copies,
+                    max(2, COLD_CALLS // len(copies)))
+                del copies
                 # per class: widen, add, scale, select, sum, two compares
                 b_ms, b_by = bound(nbytes, 7.0 * m * n)
                 log(f"state {entry_name} M={m} N={n}: kernel {ms:.5f} ms "
-                    f"(per call {call_ms:.5f} ms), plain {plain_ms:.5f} ms, "
-                    f"bound {b_ms:.5f} ms ({b_by}), share {b_ms / ms:.3f}")
+                    f"(per call {call_ms:.5f} ms), L2-cold {cold_ms:.5f} ms, "
+                    f"plain {plain_ms:.5f} ms, {nbytes} bytes, bound "
+                    f"{b_ms:.5f} ms ({b_by}), share {b_ms / ms:.3f}, cold "
+                    f"{b_ms / cold_ms:.3f}")
                 entries[entry_name, m] = dict(
-                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    n=n, m=m)
+                    ms=ms, cold_ms=cold_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, n=n, m=m)
     misaligned_views(rng, n_main, dev, check)
     for entry in entries.values():
         entry["max_abs_err"] = worst
@@ -641,7 +668,21 @@ def phase_main(bam: str, work: str) -> int:
                 f"{r} {BENCH_READS / statistics.median(ts):.0f} ("
                 + ", ".join(f"{BENCH_READS / t:.0f}" for t in ts) + ")"
                 for r, ts in times.items()))
+    log("pinned host memory after the main path's runs (PyTorch's caching "
+        "host allocator): " + json.dumps(pinned_stats()))
     return launches
+
+
+def pinned_stats() -> dict:
+    """The block and byte counts of ``torch.cuda.host_memory_stats()``."""
+    import torch
+
+    stats = torch.cuda.host_memory_stats()
+    return {k: stats[k] for k in (
+        "num_host_alloc", "num_host_free", "allocations.current",
+        "allocations.peak", "allocated_bytes.current",
+        "allocated_bytes.peak", "active_requests.current")
+        if k in stats}
 
 
 def phase_profile(bam: str, work: str) -> None:
@@ -1372,6 +1413,12 @@ TOOLS = {
     "scale_bench": (dict(SCALE_READS="20000"), 300),
     "multichip_model": (dict(MC_READS="5000"), 300),
 }
+# phase 15: the most the card's route may hold over a pileup's bytes
+# already held (RSS after the journal pileup less RSS after the default
+# one, over the same tiles), and over the host route's peak (the CUDA
+# context, a few hundred MB)
+REPEAT_PASS_MB = 256
+OVER_HOST_ROUTE_MB = 512
 # the TPU-era files the original tools overwrite; the port's never do
 TPU_RESULT_FILES = ("BENCH_SCALE_r05.json", "MULTICHIP_MODEL.json")
 
@@ -1417,17 +1464,18 @@ def flags_true(obj, path: str = "") -> list:
     return bad
 
 
-def start_tool(name: str, work: str):
-    """``python -m modkit_tpu_torch.tools.<name>`` on the card with its
-    TOOLS knobs, stdout and stderr to files of ``work``; returns (process,
+def start_tool(name: str, work: str, *args: str):
+    """``python -m modkit_tpu_torch.tools.<name> [args]`` with its TOOLS
+    knobs, stdout and stderr to files of ``work``; returns (process,
     stdout path, stderr path, limit s)."""
     knobs, limit = TOOLS[name]
     env = dict(os.environ, TMPDIR=work, **knobs)
     env.pop("MODKIT_TPU_OFFLOAD", None)  # each tool runs under its own modes
-    out, err = (os.path.join(work, f"{name}.{x}") for x in ("out", "err"))
+    tag = "_".join((name, *args)).replace("-", "")
+    out, err = (os.path.join(work, f"{tag}.{x}") for x in ("out", "err"))
     with open(out, "w") as fo, open(err, "w") as fe:
         proc = subprocess.Popen(
-            [sys.executable, "-m", f"modkit_tpu_torch.tools.{name}"],
+            [sys.executable, "-m", f"modkit_tpu_torch.tools.{name}", *args],
             cwd=HERE, env=env, stdout=fo, stderr=fe)
     return proc, out, err, limit
 
@@ -1487,24 +1535,47 @@ def phase_tools(work: str) -> None:
         f"{ct['pipeline_cold_events_per_s']:.4g}; over the HBM rate: "
         f"{roof['over_hbm_bound'] or 'none'}")
     t0 = time.perf_counter()
-    started = {name: start_tool(name, work)
-               for name in ("scale_bench", "multichip_model")}
-    results = {name: finish_tool(name, s) for name, s in started.items()}
-    scale, mc = results["scale_bench"], results["multichip_model"]
-    require(scale["config"]["n_reads"] == int(
-        TOOLS["scale_bench"][0]["SCALE_READS"]) and scale["reads_per_s"] > 0,
-        f"scale_bench: {scale}")
+    started = {
+        "scale_bench": start_tool("scale_bench", work),
+        "scale_bench cpu": start_tool("scale_bench", work, "--device", "cpu"),
+        "multichip_model": start_tool("multichip_model", work),
+    }
+    results = {name: finish_tool(name.split()[0], s)
+               for name, s in started.items()}
+    mc = results["multichip_model"]
+    for name in ("scale_bench", "scale_bench cpu"):
+        scale = results[name]
+        require(scale["config"]["n_reads"] == int(
+            TOOLS["scale_bench"][0]["SCALE_READS"])
+            and scale["reads_per_s"] > 0, f"{name}: {scale}")
+        log(f"{name} host memory (MB): peak {scale['peak_rss_mb']:.1f}; "
+            "RSS after each stage " + json.dumps(scale["rss_mb"])
+            + "; peaks of the phases (RSS, the BAM's mapped pages) "
+            + json.dumps(scale["phase_peak_mb"])
+            + "; pinned " + json.dumps(scale["pinned_host_memory"]))
+    scale, host = results["scale_bench"], results["scale_bench cpu"]
+    again = scale["rss_mb"]["journal"] - scale["rss_mb"]["default"]
+    require(again <= REPEAT_PASS_MB,
+            f"scale_bench: the journal pileup left {again:.1f} MB more RSS "
+            f"than the default one (at most {REPEAT_PASS_MB})")
+    over = scale["peak_rss_mb"] - host["peak_rss_mb"]
+    require(over <= OVER_HOST_ROUTE_MB,
+            f"scale_bench: the cuda route's peak RSS is {over:.1f} MB over "
+            f"the host route's (at most {OVER_HOST_ROUTE_MB})")
     require(mc["outputs_identical"] is True
             and set(mc["virtual_mesh_wall_s"]) == {"1", "2", "4", "8"},
             f"multichip_model: {mc}")
     for name in TPU_RESULT_FILES:
         with open(os.path.join(HERE, name), "rb") as fh:
             require(fh.read() == before[name], f"a tool wrote {name}")
-    log(f"scale and multichip tools side by side: "
+    log(f"scale (cuda and cpu) and multichip tools side by side: "
         f"{time.perf_counter() - t0:.1f} s; scale {scale['config']} "
-        f"{scale['reads_per_s']:.1f} reads/s, journal overhead "
+        f"{scale['reads_per_s']:.1f} reads/s (cpu "
+        f"{host['reads_per_s']:.1f}), journal overhead "
         f"{scale['journal_overhead_pct']:.1f}%, peak RSS "
-        f"{scale['peak_rss_mb']:.1f} MB; multichip feed "
+        f"{scale['peak_rss_mb']:.1f} MB (cpu {host['peak_rss_mb']:.1f}), "
+        f"the journal pass {again:.1f} MB over the default one; multichip "
+        "feed "
         + json.dumps(mc["host_feed_curve"]) + ", wall s over N devices "
         + json.dumps(mc["virtual_mesh_wall_s"]) + " (" +
         json.dumps(mc["virtual_mesh_devices"]["8"]) + "), byte-equal; "

@@ -22,6 +22,7 @@ it is read on every call, so a run can switch paths within one process.
 from __future__ import annotations
 
 import ctypes
+import mmap
 import os
 import subprocess
 import threading
@@ -476,6 +477,32 @@ def as_cbuf(raw):
     if isinstance(raw, (bytes, bytearray)):
         return raw
     return (ctypes.c_char * len(raw)).from_buffer(raw)
+
+
+# the largest compressed BGZF block (BSIZE is 16 bits)
+BGZF_MAX_BLOCK = 1 << 16
+
+
+def release_pages(raw, chunks) -> None:
+    """Drop a reader's mapping of the pages of the BGZF blocks that a
+    native call over ``chunks`` (virtual-offset pairs) has read.
+
+    ``io/bgzf.py`` maps the whole BAM copy-on-write and the native calls
+    read it in place, so every page they touch stays mapped, and counted
+    in the process's RSS, for the reader's life: over a run the tile
+    workers' readers and the estimate's reader map the BAM about twice.
+    ``MADV_DONTNEED`` unmaps the pages and leaves them in the page cache;
+    the map is never written, so a later touch reads the same bytes from
+    the file. The blocks run from the first chunk's start to at most one
+    block past the last chunk's end. A ``bytes`` input (stdin) has no map.
+    """
+    if not isinstance(raw, mmap.mmap) or not chunks:
+        return
+    lo = min(v for v, _ in chunks) >> 16
+    hi = min((max(v for _, v in chunks) >> 16) + BGZF_MAX_BLOCK, len(raw))
+    lo -= lo % mmap.PAGESIZE
+    if hi > lo:
+        raw.madvise(mmap.MADV_DONTNEED, lo, hi - lo)
 
 
 def bench_event_rate(n_events: int = 1_000_000, m: int = 2) -> float | None:

@@ -263,9 +263,10 @@ class TileProcessor:
                 # early stop past the tile end (feed-ceiling fix — the
                 # Python fetch inflated whole BAI chunks, ~2x the tile's
                 # share on WGS data)
+                chunks = reader.fetch_chunk_voffsets(tid, start, end)
                 res = native.decode_tile_bgzf(
                     reader.bam_raw,
-                    reader.fetch_chunk_voffsets(tid, start, end),
+                    chunks,
                     tid, start, end,
                     max_depth=self.opts.max_depth or 0,
                     force_allow=self.opts.force_allow,
@@ -275,6 +276,7 @@ class TileProcessor:
                     partition_tags=self.opts.partition_tags,
                     n_threads=self.opts.decode_threads,
                 )
+                native.release_pages(reader.bam_raw, chunks)
             else:
                 res = native.decode_tile(
                     reader.fetch_chunks_raw(tid, start, end),

@@ -424,13 +424,12 @@ def run_pileup(cfg: PileupConfig) -> dict:
     # + ordered channel, pileup/subcommand.rs:714-799):
     #   - tile LAUNCHES (BGZF fetch + native decode + async device
     #     dispatch on the worker's own CUDA stream) run on a small host
-    #     worker pool, each worker with its own BamReader, so host decode of
-    #     upcoming tiles overlaps device compute and row emission;
+    #     worker pool, so host decode of upcoming tiles overlaps device
+    #     compute and row emission;
     #   - kernels round-robin across local devices
     #     (TileProcessor._next_device);
     #   - FINISHES pop in FIFO launch order on this thread, keeping the
     #     output genome-ordered.
-    import threading
     from collections import deque
     from concurrent.futures import ThreadPoolExecutor
 
@@ -457,16 +456,12 @@ def run_pileup(cfg: PileupConfig) -> dict:
         n_devices + n_workers,
     )
 
-    tls = threading.local()
-
-    def tile_reader():
-        if is_cram_input:
-            return reader  # records decode once, then read-only
-        r = getattr(tls, "reader", None)
-        if r is None:
-            r = tls.reader = BamReader(cfg.in_bam)
-        return r
-
+    # the workers share the run's reader: parallel launches take the
+    # native route, which reads only the reader's map of the BAM (each
+    # block's pages dropped once read, native.release_pages) and its
+    # index; a map per worker would hold the pages it touched (on some
+    # kernels the whole BAM) once more. A CRAM's records decode once, then
+    # are read-only.
     # workers run the whole tile (launch + finish: decode, device
     # dispatch, count assembly, row FORMATTING) so the main thread only
     # writes ordered output — formatting was serializing on the main
@@ -480,7 +475,7 @@ def run_pileup(cfg: PileupConfig) -> dict:
         tid, chrom, start, end, focus = tile
         if focus is not None and not (focus.rule >= 0).any():
             return None
-        pend = proc.launch_tile(tile_reader(), tid, start, end, focus)
+        pend = proc.launch_tile(reader, tid, start, end, focus)
         if not finish_in_worker or pend is None:
             return pend
         if isinstance(writer, BedMethylWriter):
@@ -511,6 +506,7 @@ def run_pileup(cfg: PileupConfig) -> dict:
 
     pool = ThreadPoolExecutor(max_workers=n_workers)
     inflight: deque = deque()
+    done = False
     try:
         for tile_idx, tile in enumerate(iter_tiles()):
             if pcount > 1 and tile_idx % pcount != pidx:
@@ -526,8 +522,12 @@ def run_pileup(cfg: PileupConfig) -> dict:
                 )
         while inflight:
             finish_one(inflight.popleft())
+        done = True
     finally:
-        pool.shutdown(wait=False, cancel_futures=True)
+        # a finished run joins its idle workers, so what their threads hold
+        # is freed before it returns; a failed one does not wait for tiles
+        # in flight
+        pool.shutdown(wait=done, cancel_futures=True)
         if prof is not None:
             prof.stop()
             os.makedirs(profile_dir, exist_ok=True)

@@ -417,13 +417,15 @@ def sample_reads(
             )
             for s, e, x in regions:
                 if native_regions:
+                    chunks = reader.fetch_chunk_voffsets(tid, s, e)
                     res = _native.sample_region(
                         reader.bam_raw,
-                        reader.fetch_chunk_voffsets(tid, s, e),
+                        chunks,
                         tid, s, e, x, only_mapped,
                         "\n".join(seen).encode() + b"\n" if seen else b"",
                         collapse=collapse, edge_filter=edge_filter,
                     )
+                    _native.release_pages(reader.bam_raw, chunks)
                     if res is not None:
                         conf, tb, _consumed, new_names = res
                         conf_parts.append((tb, conf))

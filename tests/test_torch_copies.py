@@ -69,7 +69,9 @@ PORTS = {
     "engines/extract.py": "the shard barrier is a torch.distributed "
                           "barrier (sync_processes), not jax's",
     "thresholds.py": "the forced-device percentile sorts with torch.sort "
-                     "on the run's device instead of a jitted jnp.sort",
+                     "on the run's device instead of a jitted jnp.sort; "
+                     "the native sample drops its blocks' pages from the "
+                     "reader's map",
     "ops/__init__.py": "the docstring names the CUDA kernels",
     "parallel/__init__.py": "the docstring: devices, a grid of torch "
                             "devices and a process group, not a jax Mesh",
@@ -83,9 +85,11 @@ PORTS = {
                                   "is an int32 sum on the tile's first "
                                   "device",
     "pileup/engine.py": "the kernels' wrappers, CUDA streams and pinned "
-                        "copies instead of jitted calls",
+                        "copies instead of jitted calls; a decoded tile's "
+                        "blocks leave the reader's map",
     "pileup/runner.py": "the run's device, torch.profiler; the shard "
-                        "barrier is sync_processes, not jax's",
+                        "barrier is sync_processes, not jax's; the tile "
+                        "workers share the run's reader",
 }
 
 

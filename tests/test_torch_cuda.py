@@ -13,7 +13,8 @@ host route; a CRAM pileup on the card
 listed 1 and 4 times, and a two-process shard run on the one card; and the
 count-kernel lab's kernels (``ops/lab_counts.py``) against their plain
 versions and the oracle; and the bench tool's roofline bodies
-(``tools/bench.kernel_rooflines``) against theirs, timed.
+(``tools/bench.kernel_rooflines``) against theirs, timed; and the tile
+route's pinned staging over 200 tiles and two pileup passes on the card.
 
 The tests marked ``cuda`` need an NVIDIA GPU (a CUDA kernel has no CPU
 mode) and skip without one; on a machine with a card run them with
@@ -318,6 +319,75 @@ def test_collapse_pileup_on_cuda_equals_the_host_route(cuda_device, tmp_path,
         else:
             assert launched == (0, 0)
     assert filecmp.cmp(outs["cuda"], outs["host"], shallow=False)
+
+
+@pytest.mark.cuda
+def test_pinned_staging_stays_flat_over_200_tiles(cuda_device, tmp_path,
+                                                 monkeypatch):
+    """200 tiles through the engine on the card, six in flight as the
+    runner keeps them: after the first tiles PyTorch's caching host
+    allocator makes almost no new pinned block (each tile's staging reuses
+    the blocks of tiles already finished), and every tile launches kernel
+    A once."""
+    from collections import deque
+
+    from modkit_tpu_torch.caller import ThresholdCaller
+    from modkit_tpu_torch.io.bam import BamReader
+    from modkit_tpu_torch.pileup.engine import PileupOptions, TileProcessor
+    from modkit_tpu_torch.utils.synth import make_synthetic_modbam
+
+    monkeypatch.setenv("MODKIT_TPU_OFFLOAD", "always")
+    bam = str(tmp_path / "s.bam")
+    contig = make_synthetic_modbam(bam, n_reads=4000, read_len=2000,
+                                   coverage=20.0, seed=9)["contig_len"]
+    tile = contig // 200
+    proc = TileProcessor(ThresholdCaller.passthrough(),
+                         PileupOptions(device="cuda"))
+    reader = BamReader(bam)
+    inflight, made = deque(), []
+    before = state.STATE_KERNEL_LAUNCHES
+    for i in range(200):
+        inflight.append(proc.launch_tile(reader, 0, i * tile, (i + 1) * tile))
+        if len(inflight) > 6:
+            proc.finish_tile(inflight.popleft(), chrom="synth1")
+        made.append(torch.cuda.host_memory_stats()["num_host_alloc"])
+    while inflight:
+        proc.finish_tile(inflight.popleft(), chrom="synth1")
+    assert state.STATE_KERNEL_LAUNCHES - before == 200
+    # the allocator rounds to powers of two and tiles span three of them
+    # here: a size first met late may add the blocks of the tiles in
+    # flight once, where staging that is not reused adds two every tile
+    assert made[-1] - made[20] <= 8, made
+
+
+@pytest.mark.cuda
+def test_two_pass_pileup_on_cuda_equals_offload_never(cuda_device, tmp_path,
+                                                      monkeypatch):
+    """The scale tool's two passes (the default estimate, then with a
+    journal) on the card in one process, each byte-equal to the host C++
+    route (MODKIT_TPU_OFFLOAD=never), kernel A once per tile each time."""
+    import filecmp
+
+    from modkit_tpu_torch.pileup.runner import PileupConfig, run_pileup
+    from modkit_tpu_torch.utils.synth import make_synthetic_modbam
+
+    bam = str(tmp_path / "s.bam")
+    make_synthetic_modbam(bam, n_reads=2000, read_len=2000, coverage=20.0,
+                          seed=10)
+    monkeypatch.setenv("MODKIT_TPU_OFFLOAD", "never")
+    host = str(tmp_path / "host.bed")
+    run_pileup(PileupConfig(in_bam=bam, out=host, interval_size=10_000,
+                            suppress_progress=True, device="cuda"))
+    tiles = {int(line.split("\t", 2)[1]) // 10_000 for line in open(host)}
+    monkeypatch.setenv("MODKIT_TPU_OFFLOAD", "always")
+    for tag, kw in (("default", {}),
+                    ("journal", dict(journal=str(tmp_path / "j.jsonl")))):
+        out = str(tmp_path / f"{tag}.bed")
+        before = state.STATE_KERNEL_LAUNCHES
+        run_pileup(PileupConfig(in_bam=bam, out=out, interval_size=10_000,
+                                suppress_progress=True, device="cuda", **kw))
+        assert state.STATE_KERNEL_LAUNCHES - before == len(tiles) > 10
+        assert filecmp.cmp(out, host, shallow=False), tag
 
 
 @pytest.mark.cuda

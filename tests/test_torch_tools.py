@@ -95,6 +95,19 @@ def test_scale_bench_on_the_cpu_writes_only_where_asked(tiny, tmp_path,
     assert want <= set(got) | set(got["config"])
     assert got["config"]["n_reads"] == 400 and got["reads_per_s"] > 0
     assert got["peak_rss_mb"] > 0
+    # host memory: VmRSS after each stage; the peaks of the synthesis and
+    # of each pileup, with the BAM's mapped pages (the synthesis maps it
+    # to index it; the pileups drop each block once read); no pinned stats
+    # off a card
+    stages = ["imports", "device", "kernels", "synthesis", "default",
+              "journal"]
+    assert list(got["rss_mb"]) == stages
+    assert all(got["rss_mb"][k] > 0 for k in stages)
+    assert max(got["rss_mb"].values()) <= got["peak_rss_mb"]
+    assert list(got["phase_peak_mb"]) == ["synthesis", "default", "journal"]
+    for peak in got["phase_peak_mb"].values():
+        assert 0 <= peak["bam"] < peak["rss"] <= got["peak_rss_mb"]
+    assert got["pinned_host_memory"] is None
 
 
 def test_multichip_model_on_the_cpu(tiny, capsys):
