@@ -1,0 +1,134 @@
+"""A whole run on the CPU, with the harness's look for a card skipped: a
+sound run is correct and its result line has the contract's keys; with
+the timed path broken underneath, ``correct`` comes out false."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from benchmark import run
+from conftest import CELLS, ROOT, SMALL
+
+KEYS = ["correct", "attempted", "failed", "metrics", "device", "build_s", "checks"]
+
+
+def _spec():
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as fh:
+        return json.load(fh)
+
+
+def _names(kind, workload):
+    """The metrics of ``kind`` that BENCHMARK.json gives ``workload``."""
+    return {m["name"] for m in _spec()[kind] if workload in m.get("workloads", [workload])}
+
+
+def _run(workload, seed=2**32 + 5, trace=False):
+    return run.run_cell(workload, seed, 0.5, trace, device="cpu", data_override=SMALL)
+
+
+@pytest.mark.parametrize("workload", CELLS)
+def test_sound_run(workload):
+    res = _run(workload)
+    assert list(res) == KEYS
+    assert res["correct"] is True and res["failed"] == 0 and res["attempted"] >= 1
+    assert set(res["metrics"]) == _names("end_to_end", workload)
+    assert all(c["value"] == 0 and c["limit"] == 0 for c in res["checks"].values())
+    assert res["device"]["platform"] == "cpu" and res["build_s"] >= 0
+    assert res["metrics"]["setup_s"]["value"] > 0
+
+
+@pytest.mark.parametrize("workload", [CELLS[0], CELLS[2]])
+def test_traced_run_reports_host_layers(workload):
+    res = _run(workload, trace=True)
+    assert res["correct"] is True
+    # the CPU has no device trace: only the host's metrics are read
+    device = {m["name"] for m in _spec()["per_layer"] if m["source"] == "device_trace"}
+    assert set(res["metrics"]) == _names("per_layer", workload) - device
+
+
+def _alter_text(monkeypatch):
+    from modkit_tpu_torch import native
+
+    real = native.format_rows
+
+    def altered(*a, **k):
+        out = real(*a, **k)
+        text, n = out
+        return text.replace(b"\t0\n", b"\t1\n", 1), n
+    monkeypatch.setattr(native, "format_rows", altered)
+
+
+def _alter_rows(monkeypatch):
+    from modkit_tpu_torch.pileup import engine
+
+    real = engine.combine_strand_rows
+
+    def altered(*a, **k):
+        out = real(*a, **k)
+        if out:
+            out[0][1][0].n_canonical += 1
+        return out
+    monkeypatch.setattr(engine, "combine_strand_rows", altered)
+
+
+def _drop_half(monkeypatch):
+    from modkit_tpu_torch.pileup.engine import TileProcessor
+
+    real = TileProcessor.launch_tile
+
+    def half(self, reader, tid, start, end, focus=None):
+        if (start // 100000) % 2:
+            return None
+        return real(self, reader, tid, start, end, focus)
+    monkeypatch.setattr(TileProcessor, "launch_tile", half)
+
+
+def _state_unchanged(monkeypatch):
+    from modkit_tpu_torch.pileup import engine
+
+    for name in ("threshold_state_quals_t", "threshold_state_f32"):
+        real = getattr(engine, name)
+
+        def zeros(*a, _real=real, **k):
+            return torch.zeros_like(_real(*a, **k))
+        monkeypatch.setattr(engine, name, zeros)
+
+
+FAULTS = {
+    "answer_altered": {CELLS[0]: _alter_text, CELLS[1]: _alter_rows, CELLS[2]: _alter_rows},
+    "half_left_out": {c: _drop_half for c in CELLS},
+    "state_unchanged": {c: _state_unchanged for c in CELLS},
+}
+
+
+@pytest.mark.parametrize("workload", CELLS)
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+def test_fault_is_caught(monkeypatch, workload, fault):
+    FAULTS[fault][workload](monkeypatch)
+    res = _run(workload)
+    assert res["correct"] is False
+    assert res["checks"]["jobs_differing"]["value"] >= 1
+    assert res["checks"]["rows_differing"]["value"] > 0
+
+
+def test_no_card_no_result():
+    """Without a CUDA device the benchmark exits non-zero and prints no
+    result line."""
+    p = subprocess.run([sys.executable, "benchmark/run.py", "--workload", CELLS[0],
+                        "--seed", "1", "--seconds", "1", "--trace", "0"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    assert p.returncode != 0 and p.stdout.strip() == ""
+
+
+def test_rows_differing_counts_multiplicity():
+    a = b"x\ny\ny\n"
+    assert run.rows_differing(a, b"x\ny\n") == 1
+    assert run.rows_differing(a, a) == 0
+    assert np.isfinite(run.RSS_PERIOD_S)
