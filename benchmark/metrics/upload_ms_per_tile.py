@@ -1,0 +1,17 @@
+"""The host's side of the H2D copy (the program's ``upload`` span around
+``engine._upload``: the pinned staging buffer, the pack and the enqueue of
+the copy) in ms per tile, summed over the tile workers. Nothing where the
+program has no tracer (``modkit_tpu_torch.tracing``)."""
+
+import importlib.util
+
+COUNTS = {"tiles": {"modkit_tpu_torch.pileup.engine:TileProcessor.launch_tile": None}}
+if importlib.util.find_spec("modkit_tpu_torch.tracing") is not None:
+    # emit(kind, name, tile, start_ns, end_ns, value)
+    COUNTS["upload_ns"] = {"modkit_tpu_torch.tracing:emit":
+                           lambda a: a[4] - a[3] if a[1] == "upload" else 0}
+
+
+def read(tr):
+    ns, tiles = tr.counts.get("upload_ns"), tr.counts.get("tiles")
+    return None if ns is None or not tiles else ns / 1e6 / tiles

@@ -37,8 +37,10 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
 6. the count path: the Python event route (native decoder off) on a
    2 000-read modBAM, byte-equal to the host path, with count-kernel
    launches > 0.
-7. one more device run traced with torch.profiler (``MODKIT_TPU_PROFILE``):
-   the card's busy share over the traced window and its busiest ops.
+7. one more device run traced with ``MODKIT_TPU_PROFILE`` (the card's
+   activity and the program's spans on one clock): the card's busy share
+   over the traced window and its busiest ops, each span in ms per tile
+   summed over the threads, and the spans under the longest idle gaps.
 8. more than 8 mod codes: the runtime-M kernels of kernel A's f32 entry
    and of kernel B against their plain versions for M in {3, 9, 16}, and a 9-code pileup on ``cuda``
    through the native route (kernel A's f32 entry) and the Python event
@@ -485,59 +487,6 @@ def counts_edge_cases(args, tm, tc, ms_tile: float) -> int:
     return worst
 
 
-def tile_layers(tile, dev, reader) -> None:
-    """Per-tile times of the main path's layers on the middle tile: host
-    decode, H2D of the compact planes, state kernel, D2H, host histogram,
-    row formatting (host clock, median of 5; device parts end in a
-    synchronize)."""
-    import numpy as np
-    import torch
-
-    from modkit_tpu_torch.caller import ThresholdCaller
-    from modkit_tpu_torch.modcodes import mod_code_sort_key
-    from modkit_tpu_torch import native
-    from modkit_tpu_torch.ops.state import (
-        threshold_state_quals_t, thresholds_to_tensors,
-    )
-    from modkit_tpu_torch.pileup.engine import _to_host_async, _upload
-
-    n, m = tile.n_events, tile.m
-    tm, tc = thresholds_to_tensors(
-        *ThresholdCaller.passthrough().threshold_arrays(tile.vocab), m)
-    t = {k: [] for k in ("decode", "export", "h2d", "kernel", "d2h",
-                         "histogram", "format")}
-    for _ in range(5):
-        t0 = time.perf_counter()
-        res = middle_tile(reader)
-        t1 = time.perf_counter()
-        q = res.export_quals_t(n, m)
-        t2 = time.perf_counter()
-        d = _upload(list(q), dev)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        st = threshold_state_quals_t(*d, tm, tc)
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
-        host, ev = _to_host_async(st)
-        ev.synchronize()
-        t5 = time.perf_counter()
-        cnt = res.bincount_full(host.numpy(), m)
-        t6 = time.perf_counter()
-        order = np.asarray(sorted(range(len(res.vocab)),
-                                  key=lambda i: mod_code_sort_key(res.vocab[i])),
-                           dtype=np.int32)
-        native.format_rows(cnt, res.observed_raw(), res.vocab, order, 0,
-                           "synth1", False, "\t")
-        t7 = time.perf_counter()
-        for k, a, b in (("decode", t0, t1), ("export", t1, t2),
-                        ("h2d", t2, t3), ("kernel", t3, t4), ("d2h", t4, t5),
-                        ("histogram", t5, t6), ("format", t6, t7)):
-            t[k].append((b - a) * 1e3)
-    log("tile layers (ms, median of 5, host clock, N=%d M=%d): %s" % (
-        n, m, json.dumps({k: round(statistics.median(v), 4)
-                          for k, v in t.items()})))
-
-
 def reset_launches() -> None:
     """Set every kernel's launch count, the f32 entry's count of aligned
     copies and the count of threshold sorts on the card to 0, just before
@@ -686,9 +635,11 @@ def pinned_stats() -> dict:
 
 
 def phase_profile(bam: str, work: str) -> None:
-    """One more no-filtering device run under MODKIT_TPU_PROFILE: the
-    torch.profiler trace's device busy share (union of kernel, memcpy and
-    memset spans over the traced window) and its busiest device ops."""
+    """One more no-filtering device run under MODKIT_TPU_PROFILE (4 tile
+    workers, as users run it): from its trace.json the card's busy share
+    (union of kernel, memcpy and memset spans over the traced window) and
+    its busiest device ops; the program's spans in ms per tile, summed
+    over the threads; and the spans under the longest device-idle gaps."""
     trace_dir = os.path.join(work, "profile")
     os.environ["MODKIT_TPU_PROFILE"] = trace_dir
     try:
@@ -698,7 +649,7 @@ def phase_profile(bam: str, work: str) -> None:
         del os.environ["MODKIT_TPU_PROFILE"]
     with open(os.path.join(trace_dir, "trace.json")) as fh:
         events = json.load(fh)["traceEvents"]
-    spans, by_name = [], {}
+    spans, ours, by_name = [], [], {}
     lo, hi = float("inf"), 0.0
     for ev in events:
         if ev.get("ph") != "X" or "dur" not in ev:
@@ -708,18 +659,39 @@ def phase_profile(bam: str, work: str) -> None:
             spans.append((ev["ts"], ev["ts"] + ev["dur"]))
             key = ev["name"][:60]
             by_name[key] = by_name.get(key, 0.0) + ev["dur"]
+        elif ev.get("cat") == "modkit_tpu_torch":
+            ours.append(ev)
     require(bool(spans), "profile: the trace holds no device work")
-    busy, end = 0.0, -1.0
+    tiles = sum(1 for ev in ours if ev["name"] == "tile")
+    require(tiles > 0, "profile: the trace holds no tile spans")
+    busy, end, gaps = 0.0, lo, []
     for a, b in sorted(spans):
+        if a > end:
+            gaps.append((end, a))
         if b > end:
             busy += b - max(a, end)
             end = b
+    gaps.append((end, hi))
     window = max(hi - lo, 1.0)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     log(f"profile: traced window {window / 1e6:.3f} s, device busy "
         f"{busy / 1e3:.3f} ms = {busy / window:.5f} of the window, "
         f"{len(spans)} device spans; top (ms): "
         + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in top))
+    per_span = {}
+    for ev in ours:
+        per_span[ev["name"]] = per_span.get(ev["name"], 0.0) + ev["dur"]
+    log(f"profile: spans over {tiles} tiles (ms a tile, summed over the "
+        "threads): " + ", ".join(
+            f"{k} {v / 1e3 / tiles:.3f}"
+            for k, v in sorted(per_span.items(), key=lambda kv: -kv[1])))
+    for a, b in sorted(gaps, key=lambda g: g[0] - g[1])[:5]:
+        mid = (a + b) / 2
+        under = sorted({f"{ev['name']}@{ev.get('args', {}).get('tile', '-')}"
+                        for ev in ours if ev["name"] != "tile"
+                        and ev["ts"] <= mid <= ev["ts"] + ev["dur"]})
+        log(f"profile: device idle {(b - a) / 1e3:.3f} ms under "
+            + (" ".join(under) or "no span"))
 
 
 def phase_count_path(work: str) -> int:
@@ -1996,7 +1968,6 @@ def main() -> int:
         phase_peaks()
         st = phase_state(tile, dev)
         ct = phase_counts(tile, dev)
-        tile_layers(tile, dev, reader)
         state_launches = phase_main(bam, work)
         count_launches = phase_count_path(work)
         phase_profile(bam, work)

@@ -22,6 +22,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import tracing
 from ..caller import ThresholdCaller
 from ..errors import ErrorTally, ModKitError
 from ..modcodes import DNA_BASES, any_mod_code, mod_code_sort_key
@@ -264,32 +265,36 @@ class TileProcessor:
                 # Python fetch inflated whole BAI chunks, ~2x the tile's
                 # share on WGS data)
                 chunks = reader.fetch_chunk_voffsets(tid, start, end)
-                res = native.decode_tile_bgzf(
-                    reader.bam_raw,
-                    chunks,
-                    tid, start, end,
-                    max_depth=self.opts.max_depth or 0,
-                    force_allow=self.opts.force_allow,
-                    edge_filter=self.opts.edge_filter,
-                    collapse=self.opts.collapse,
-                    focus_rule=focus_rule,
-                    partition_tags=self.opts.partition_tags,
-                    n_threads=self.opts.decode_threads,
-                )
-                native.release_pages(reader.bam_raw, chunks)
+                with tracing.span("decode"):
+                    res = native.decode_tile_bgzf(
+                        reader.bam_raw,
+                        chunks,
+                        tid, start, end,
+                        max_depth=self.opts.max_depth or 0,
+                        force_allow=self.opts.force_allow,
+                        edge_filter=self.opts.edge_filter,
+                        collapse=self.opts.collapse,
+                        focus_rule=focus_rule,
+                        partition_tags=self.opts.partition_tags,
+                        n_threads=self.opts.decode_threads,
+                    )
+                    native.release_pages(reader.bam_raw, chunks)
             else:
-                res = native.decode_tile(
-                    reader.fetch_chunks_raw(tid, start, end),
-                    tid, start, end,
-                    max_depth=self.opts.max_depth or 0,
-                    force_allow=self.opts.force_allow,
-                    edge_filter=self.opts.edge_filter,
-                    collapse=self.opts.collapse,
-                    focus_rule=focus_rule,
-                    partition_tags=self.opts.partition_tags,
-                    n_threads=self.opts.decode_threads,
-                )
+                with tracing.span("decode"):
+                    res = native.decode_tile(
+                        reader.fetch_chunks_raw(tid, start, end),
+                        tid, start, end,
+                        max_depth=self.opts.max_depth or 0,
+                        force_allow=self.opts.force_allow,
+                        edge_filter=self.opts.edge_filter,
+                        collapse=self.opts.collapse,
+                        focus_rule=focus_rule,
+                        partition_tags=self.opts.partition_tags,
+                        n_threads=self.opts.decode_threads,
+                    )
             if res is not None:
+                tracing.count("reads_decoded", res.n_used + res.n_skipped)
+                tracing.count("events", res.n_events)
                 with self._stats_lock:
                     self.n_used += res.n_used
                     self.n_skipped += res.n_skipped
@@ -306,17 +311,22 @@ class TileProcessor:
         pkeys: list[int] = []  # per-read partition slot
         parts: list = []  # tile-local key list (None = NoKey/"ungrouped")
         pindex: dict = {}
-        for rec in reader.fetch(tid, start, end):
-            if rec.is_not_primary or rec.l_seq == 0:
-                continue
-            reads.append(self._events_for(rec, tid))
-            if ptags:
-                key = partition_key_for(rec, ptags)
-                pidx = pindex.get(key)
-                if pidx is None:
-                    pidx = pindex[key] = len(parts)
-                    parts.append(key)
-                pkeys.append(pidx)
+        decoded = self.n_used + self.n_skipped
+        with tracing.span("decode"):
+            for rec in reader.fetch(tid, start, end):
+                if rec.is_not_primary or rec.l_seq == 0:
+                    continue
+                reads.append(self._events_for(rec, tid))
+                if ptags:
+                    key = partition_key_for(rec, ptags)
+                    pidx = pindex.get(key)
+                    if pidx is None:
+                        pidx = pindex[key] = len(parts)
+                        parts.append(key)
+                    pkeys.append(pidx)
+        # this route launches from one thread: the decoder's counts are the
+        # tile's alone (a read decodes once, for its first tile)
+        tracing.count("reads_decoded", self.n_used + self.n_skipped - decoded)
         if not reads:
             return None
         n_parts = max(len(parts), 1) if ptags else 1
@@ -416,10 +426,12 @@ class TileProcessor:
         # painting below overlap device compute / D2H transfer
         ready = None
         if rpos_l:
-            rpos = np.concatenate(rpos_l).astype(np.int32)
-            strand = np.concatenate(strand_l).astype(np.int32)
-            base_idx = np.concatenate(base_l).astype(np.int32)
-            probs = np.concatenate(probs_l, axis=0)
+            with tracing.span("export"):
+                rpos = np.concatenate(rpos_l).astype(np.int32)
+                strand = np.concatenate(strand_l).astype(np.int32)
+                base_idx = np.concatenate(base_l).astype(np.int32)
+                probs = np.concatenate(probs_l, axis=0)
+            tracing.count("events", len(rpos))
             thr_mod, thr_can = self.caller.threshold_arrays(vocab or ["m"])
             offload = self.opts.use_device
             if offload:
@@ -441,20 +453,23 @@ class TileProcessor:
                 )
                 dev = self._next_device()
                 with self._on_device(dev):
-                    probs_d, rpos_d, strand_d, base_d = _upload(
-                        [probs_p, rpos, strand, base_idx], dev
-                    )
-                    modc, ready = _to_host_async(
-                        modcall_counts(
-                            rpos_d, strand_d, base_d, probs_d,
-                            thr_mod_t, thr_can_t, p_total,
+                    with tracing.span("upload"):
+                        probs_d, rpos_d, strand_d, base_d = _upload(
+                            [probs_p, rpos, strand, base_idx], dev
                         )
-                    )
+                    with tracing.span("dispatch"):
+                        modc, ready = _to_host_async(
+                            modcall_counts(
+                                rpos_d, strand_d, base_d, probs_d,
+                                thr_mod_t, thr_can_t, p_total,
+                            )
+                        )
             else:
-                modc = modcall_counts_numpy(
-                    rpos, strand, base_idx, probs, thr_mod, thr_can,
-                    p_total, m,
-                )
+                with tracing.span("dispatch"):
+                    modc = modcall_counts_numpy(
+                        rpos, strand, base_idx, probs, thr_mod, thr_can,
+                        p_total, m,
+                    )
         else:
             modc = np.zeros((p_total, 2, 1 + 4 * (m + 1)), dtype=np.int32)
 
@@ -513,6 +528,7 @@ class TileProcessor:
         states = None
         ready = None
         m_pad = round_up_codes(m)
+        route = "none"
         if n:
             thr_mod, thr_can = self.caller.threshold_arrays(vocab or ["m"])
             thr_mod_p = np.pad(thr_mod[:m], ((0, m_pad - m), (0, 0)))
@@ -532,39 +548,47 @@ class TileProcessor:
                     thr_mod_p, thr_can, m_pad
                 )
                 dev = self._next_device()
-                q = res.export_quals_t(n, m_pad)
-                with self._on_device(dev):
-                    if q is not None:
-                        quals_t, present, zero, base_idx = _upload(list(q), dev)
-                        st = threshold_state_quals_t(
-                            quals_t, present, zero, base_idx,
-                            thr_mod_t, thr_can_t,
-                        )
-                    else:
+                with tracing.span("export"):
+                    route, q = "quals", res.export_quals_t(n, m_pad)
+                    if q is None:
                         _, _, base_idx, probs = res.export_events(n, m_pad)
-                        probs, base_idx = _upload(
-                            [probs, base_idx.astype(np.uint8)], dev
-                        )
-                        st = threshold_state_f32(
-                            probs, base_idx, thr_mod_t, thr_can_t
-                        )
-                    states, ready = _to_host_async(st)
+                        route, q = "f32", (probs, base_idx.astype(np.uint8))
+                with self._on_device(dev):
+                    with tracing.span("upload"):
+                        up = _upload(list(q), dev)
+                    with tracing.span("dispatch"):
+                        if route == "quals":
+                            st = threshold_state_quals_t(
+                                *up, thr_mod_t, thr_can_t
+                            )
+                        else:
+                            st = threshold_state_f32(
+                                *up, thr_mod_t, thr_can_t
+                            )
+                        states, ready = _to_host_async(st)
             elif self.opts.use_device:
                 # adaptive host path: same call semantics in one C++ pass
                 # (native mk_threshold_states); assemble_counts histograms
                 # the states exactly as it does device-computed ones
-                states = res.threshold_states_cpu(
-                    thr_mod_p.astype(np.float32), thr_can
-                )
+                route = "host"
+                with tracing.span("dispatch"):
+                    states = res.threshold_states_cpu(
+                        thr_mod_p.astype(np.float32), thr_can
+                    )
             else:
-                rpos, strand, base_idx, probs = res.export_events()
-                modc = modcall_counts_numpy(
-                    rpos.astype(np.int64), strand.astype(np.int64),
-                    base_idx.astype(np.int64), probs, thr_mod, thr_can,
-                    p, m,
-                )
+                route = "host"
+                with tracing.span("export"):
+                    rpos, strand, base_idx, probs = res.export_events()
+                with tracing.span("dispatch"):
+                    modc = modcall_counts_numpy(
+                        rpos.astype(np.int64), strand.astype(np.int64),
+                        base_idx.astype(np.int64), probs, thr_mod, thr_can,
+                        p, m,
+                    )
         else:
             modc = np.zeros((res._p, 2, 1 + 4 * (m_pad + 1)), dtype=np.int32)
+        tracing.count("m_pad", m_pad)
+        tracing.count("route", tracing.ROUTES.index(route))
         # with per-event states the nc/del channels come out of
         # bincount_full directly — skip the host copies at launch
         nc = res.nc_counts if states is None else None
@@ -581,10 +605,15 @@ class TileProcessor:
     def assemble_counts(self, pending: "TilePending") -> np.ndarray:
         """Merge in-flight device mod-call counts with the host coverage
         histograms into the full count tensor [p, 2, 6 + 4*(m_pad+1)]."""
+        with tracing.span("device_wait"):
+            if pending.ready is not None:
+                # the tile's D2H copy into pinned host memory has landed
+                pending.ready.synchronize()
+        with tracing.span("histogram"):
+            return self._histogram(pending)
+
+    def _histogram(self, pending: "TilePending") -> np.ndarray:
         p = pending.p
-        if pending.ready is not None:
-            # the tile's D2H copy into pinned host memory has landed
-            pending.ready.synchronize()
         if pending.states is not None:
             # per-event states (device- or host-computed): one native pass
             # histograms them straight into the full count layout,
@@ -621,7 +650,10 @@ class TileProcessor:
         if pending is None:
             return []
         counts = self.assemble_counts(pending)
+        with tracing.span("format"):
+            return self._rows(pending, counts, chrom, space)
 
+    def _rows(self, pending: "TilePending", counts: np.ndarray, chrom, space):
         if pending.parts is not None:
             # partition mode: slice the folded position axis back into one
             # count tensor per partition key and decode each independently
@@ -696,13 +728,15 @@ def _upload(arrays: list, dev: torch.device) -> list:
     non-blocking copy on the current stream; the caching host allocator
     keeps the buffer until that copy has run."""
     arrays = [np.ascontiguousarray(a) for a in arrays]
-    if dev.type != "cuda":
-        return [torch.from_numpy(a) for a in arrays]
     offsets = []
     total = 0
     for a in arrays:
         offsets.append(total)
         total += -(-a.nbytes // 16) * 16
+    # on the CPU nothing crosses: the count is what would
+    tracing.count("bytes_up", total)
+    if dev.type != "cuda":
+        return [torch.from_numpy(a) for a in arrays]
     host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
     hv = host.numpy()
     for a, off in zip(arrays, offsets):
@@ -720,6 +754,7 @@ def _to_host_async(t: torch.Tensor):
     """(host tensor, event): on CUDA a non-blocking copy into pinned host
     memory on the current stream and an event recorded after it; on the
     CPU the tensor itself and no event."""
+    tracing.count("bytes_down", t.numel() * t.element_size())
     if t.device.type != "cuda":
         return t, None
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)

@@ -19,8 +19,10 @@ from __future__ import annotations
 
 import os
 import sys
+import time
 from dataclasses import dataclass, field
 
+from .. import tracing
 from ..caller import ThresholdCaller
 from ..io.bam import BamReader
 from ..writers import (
@@ -131,6 +133,26 @@ def resolve_preset(cfg: PileupConfig) -> PileupConfig:
 
 
 def run_pileup(cfg: PileupConfig) -> dict:
+    """Pile up ``cfg.in_bam`` into ``cfg.out``. Under
+    ``MODKIT_TPU_PROFILE=<dir>`` a device run also writes
+    ``<dir>/trace.json``: the card's activity and the run's spans and
+    counters on one clock (``tracing.profiled``)."""
+    profile_dir = os.environ.get("MODKIT_TPU_PROFILE")
+    if not (profile_dir and cfg.use_device):
+        return _run_pileup(cfg)
+    from ..logging import get_logger
+    from ..parallel.devices import resolve_device
+
+    with tracing.profiled(profile_dir, resolve_device(cfg.device)):
+        out = _run_pileup(cfg)
+    get_logger().info(
+        "wrote the device trace and the run's spans to %s",
+        os.path.join(profile_dir, "trace.json"),
+    )
+    return out
+
+
+def _run_pileup(cfg: PileupConfig) -> dict:
     from ..logging import ProgressTicker, get_logger
     from ..motifs import (
         parse_motifs, scan_focus_positions, scan_focus_positions_combine,
@@ -391,29 +413,37 @@ def run_pileup(cfg: PileupConfig) -> dict:
         journal_fh.write(_json.dumps(rec) + "\n")
         journal_fh.flush()
 
-    def finish_and_write(inflight):
+    def finish_and_write(inflight, tile_idx):
         nonlocal n_rows
         chrom, tid, start, end, pend = inflight
+        rows_before = n_rows
         if cfg.partition_tags:
-            write_partitioned(chrom, proc.finish_tile(pend))
-            write_journal_record(tid, start, end)
-            return
-        if isinstance(pend, (FormattedRows, ColumnarRows, list)):
-            res = pend  # already finished on the worker
-        elif isinstance(writer, BedMethylWriter):
-            res = proc.finish_tile(pend, chrom=chrom, space=writer.space)
-        else:
+            tracing.begin_tile(tile_idx)
             res = proc.finish_tile(pend)
-        if isinstance(res, FormattedRows):
-            writer.write_formatted(res)
-            n_rows += len(res)
-        elif isinstance(res, ColumnarRows):
-            writer.write_columnar(chrom, res)
-            n_rows += len(res)
+            tracing.end_tile(tracing.FINISH_STAGES)
+            with tracing.span("write", tile_idx):
+                write_partitioned(chrom, res)
         else:
-            for _pos, rows in res:
-                writer.write_rows(chrom, rows, motif_labels)
-                n_rows += len(rows)
+            if isinstance(pend, (FormattedRows, ColumnarRows, list)):
+                res = pend  # already finished on the worker
+            elif isinstance(writer, BedMethylWriter):
+                res = proc.finish_tile(pend, chrom=chrom, space=writer.space)
+            else:
+                res = proc.finish_tile(pend)
+            with tracing.span("write", tile_idx):
+                if isinstance(res, FormattedRows):
+                    writer.write_formatted(res)
+                    n_rows += len(res)
+                elif isinstance(res, ColumnarRows):
+                    writer.write_columnar(chrom, res)
+                    n_rows += len(res)
+                else:
+                    for _pos, rows in res:
+                        writer.write_rows(chrom, rows, motif_labels)
+                        n_rows += len(rows)
+            if isinstance(res, FormattedRows):
+                tracing.count("out_bytes", len(res.text), tile_idx)
+        tracing.count("rows", n_rows - rows_before, tile_idx)
         write_journal_record(tid, start, end)
 
     ticker = ProgressTicker(
@@ -470,39 +500,47 @@ def run_pileup(cfg: PileupConfig) -> dict:
     # finishing on the main thread (the partition writer fan-out isn't
     # thread-safe).
     finish_in_worker = not cfg.partition_tags
+    worker_stages = (
+        tracing.WORKER_STAGES if finish_in_worker else tracing.LAUNCH_STAGES
+    )
 
-    def launch(tile):
-        tid, chrom, start, end, focus = tile
-        if focus is not None and not (focus.rule >= 0).any():
-            return None
-        pend = proc.launch_tile(reader, tid, start, end, focus)
-        if not finish_in_worker or pend is None:
-            return pend
-        if isinstance(writer, BedMethylWriter):
-            return proc.finish_tile(pend, chrom=chrom, space=writer.space)
-        return proc.finish_tile(pend)
+    def launch(tile_idx, tile, submitted):
+        """The tile's worker part: (result, the clock at its return)."""
+        tracing.emit(
+            "span", "queued", tile_idx, submitted, time.perf_counter_ns(), 0
+        )
+        tracing.begin_tile(tile_idx)
+        try:
+            tid, chrom, start, end, focus = tile
+            if focus is not None and not (focus.rule >= 0).any():
+                pend = None
+            else:
+                pend = proc.launch_tile(reader, tid, start, end, focus)
+            if finish_in_worker and pend is not None:
+                if isinstance(writer, BedMethylWriter):
+                    pend = proc.finish_tile(
+                        pend, chrom=chrom, space=writer.space
+                    )
+                else:
+                    pend = proc.finish_tile(pend)
+        finally:
+            tracing.end_tile(worker_stages)
+        return pend, time.perf_counter_ns()
 
     def finish_one(item):
-        meta, fut = item
+        meta, fut, tile_idx, submitted = item
         chrom, tid, start, end = meta
-        finish_and_write((chrom, tid, start, end, fut.result()))
+        waited = time.perf_counter_ns()
+        pend, returned = fut.result()
+        taken = time.perf_counter_ns()
+        tracing.emit("span", "writer_wait", tile_idx, waited, taken, 0)
+        tracing.emit("span", "held", tile_idx, returned, taken, 0)
+        finish_and_write((chrom, tid, start, end, pend), tile_idx)
         if shard_mode:
             writer.write_tile_sentinel()
-
-    # observability: MODKIT_TPU_PROFILE=<dir> captures a torch.profiler
-    # trace of the tile loop (device kernels + host gaps) as a Chrome trace
-    # in <dir>/trace.json, viewable in perfetto (SURVEY §5: replaces the
-    # reference's indicatif timing with structured device traces)
-    profile_dir = os.environ.get("MODKIT_TPU_PROFILE")
-    prof = None
-    if profile_dir and cfg.use_device:
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        prof = profile(activities=activities)
-        prof.start()
+        tracing.emit(
+            "span", "tile", tile_idx, submitted, time.perf_counter_ns(), 0
+        )
 
     pool = ThreadPoolExecutor(max_workers=n_workers)
     inflight: deque = deque()
@@ -512,9 +550,12 @@ def run_pileup(cfg: PileupConfig) -> dict:
             if pcount > 1 and tile_idx % pcount != pidx:
                 continue  # owned by another host
             tid, chrom, start, end, _focus = tile
-            inflight.append(
-                ((chrom, tid, start, end), pool.submit(launch, tile))
-            )
+            submitted = time.perf_counter_ns()
+            inflight.append((
+                (chrom, tid, start, end),
+                pool.submit(launch, tile_idx, tile, submitted),
+                tile_idx, submitted,
+            ))
             if len(inflight) > n_inflight:
                 finish_one(inflight.popleft())
                 ticker.update(
@@ -528,12 +569,6 @@ def run_pileup(cfg: PileupConfig) -> dict:
         # is freed before it returns; a failed one does not wait for tiles
         # in flight
         pool.shutdown(wait=done, cancel_futures=True)
-        if prof is not None:
-            prof.stop()
-            os.makedirs(profile_dir, exist_ok=True)
-            trace = os.path.join(profile_dir, "trace.json")
-            prof.export_chrome_trace(trace)
-            log.info("wrote torch profiler trace to %s", trace)
     ticker.finish(rows=n_rows, reads=proc.n_used, skipped=proc.n_skipped)
     writer.close()
     if journal_fh is not None:
@@ -591,21 +626,22 @@ def resolve_caller(
         log.info("sampling %s%% of reads", cfg.sample_frac * 100)
     elif cfg.num_reads:
         log.info("attempting to sample %d reads", cfg.num_reads)
-    per_base = estimate_thresholds(
-        reader,
-        num_reads=cfg.num_reads,
-        sample_frac=cfg.sample_frac,
-        seed=cfg.seed,
-        include_unmapped=cfg.include_unmapped,
-        filter_percentile=cfg.filter_percentile,
-        region=cfg.sample_region or cfg.region,
-        collapse=cfg.collapse,
-        edge_filter=cfg.edge_filter,
-        force_allow=cfg.force_allow,
-        interval_size=cfg.sampling_interval_size,
-        position_filter=position_filter,
-        device=device,
-    )
+    with tracing.span("estimate", -1):
+        per_base = estimate_thresholds(
+            reader,
+            num_reads=cfg.num_reads,
+            sample_frac=cfg.sample_frac,
+            seed=cfg.seed,
+            include_unmapped=cfg.include_unmapped,
+            filter_percentile=cfg.filter_percentile,
+            region=cfg.sample_region or cfg.region,
+            collapse=cfg.collapse,
+            edge_filter=cfg.edge_filter,
+            force_allow=cfg.force_allow,
+            interval_size=cfg.sampling_interval_size,
+            position_filter=position_filter,
+            device=device,
+        )
     for base, t in per_base.items():
         log.info(
             "estimated pass threshold %s for primary sequence base %s",

@@ -1263,3 +1263,84 @@ def test_two_process_shard_pileup_on_one_card(cuda_device, tmp_path):
                 p.kill()
                 p.wait()
     assert filecmp.cmp(single, multi, shallow=False)
+
+
+def _trace_events(trace_dir):
+    import json
+    import os
+
+    with open(os.path.join(trace_dir, "trace.json")) as fh:
+        return [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+
+
+def _launch_call(events, kernel):
+    """The host's launch call of a device kernel (same correlation id)."""
+    c = kernel.get("args", {}).get("correlation")
+    calls = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and e.get("args", {}).get("correlation") == c]
+    assert len(calls) == 1, (kernel, len(calls))
+    return calls[0]
+
+
+@pytest.mark.cuda
+def test_a_span_and_its_kernel_share_the_trace_clock(cuda_device, tmp_path):
+    """Under ``MODKIT_TPU_PROFILE``'s profiler (``tracing.profiled``), a
+    span around a spin kernel of about 1 ms and a synchronize holds the
+    kernel's device interval and its launch call, each within 100 us of
+    the span's edges, on the exported trace's clock."""
+    from modkit_tpu_torch import tracing
+
+    with tracing.profiled(str(tmp_path), cuda_device):
+        # the session's first launch also sets up the profiler's tracing
+        # of the card (a 1.3 ms call on the H100's machine): outside spans
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        for i in range(3):
+            with tracing.span("dispatch", i):
+                torch.cuda._sleep(2_000_000)
+                torch.cuda.synchronize()
+    events = _trace_events(tmp_path)
+    spans = sorted((e for e in events if e.get("cat") == "modkit_tpu_torch"),
+                   key=lambda e: e["args"]["tile"])
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    assert [e["name"] for e in spans] == ["dispatch"] * 3 and len(kernels) == 4
+    for sp, k in zip(spans, kernels[1:]):
+        call = _launch_call(events, k)
+        lead, lag = k["ts"] - sp["ts"], sp["ts"] + sp["dur"] - k["ts"] - k["dur"]
+        seen = f"kernel {lead:.1f} us after the span's start, {lag:.1f} before its end; " \
+               f"launch call {call['ts'] - sp['ts']:.1f} after"
+        assert 0 <= call["ts"] - sp["ts"] <= 100, seen
+        assert 0 <= lead <= 100 and 0 <= lag <= 100, seen
+
+
+@pytest.mark.cuda
+def test_a_tiles_kernel_lies_between_its_dispatch_and_device_wait(
+        cuda_device, tmp_path, monkeypatch):
+    """A one-tile pileup under ``MODKIT_TPU_PROFILE`` on the card: the
+    trace holds the tile's spans with its id beside the device rows, and
+    kernel A's launch (its call on the host, and its run on the card)
+    falls between the tile's ``dispatch`` start and ``device_wait`` end."""
+    from modkit_tpu_torch.pileup.runner import PileupConfig, run_pileup
+    from modkit_tpu_torch.utils.synth import make_synthetic_modbam
+
+    bam = str(tmp_path / "s.bam")
+    contig = make_synthetic_modbam(bam, n_reads=600, read_len=2000,
+                                   coverage=20.0, seed=11)["contig_len"]
+    monkeypatch.setenv("MODKIT_TPU_OFFLOAD", "always")
+    monkeypatch.setenv("MODKIT_TPU_PROFILE", str(tmp_path / "prof"))
+    run_pileup(PileupConfig(in_bam=bam, out=str(tmp_path / "a.bed"),
+                            interval_size=contig, no_filtering=True,
+                            suppress_progress=True, device="cuda"))
+    events = _trace_events(tmp_path / "prof")
+    ours = {e["name"]: e for e in events if e.get("cat") == "modkit_tpu_torch"}
+    assert all(e["args"]["tile"] == 0 for e in ours.values())
+    kernels = [e for e in events if e.get("cat") == "kernel" and "state_" in e["name"]]
+    assert len(kernels) == 1, [e["name"] for e in events if e.get("cat") == "kernel"]
+    k, call = kernels[0], _launch_call(events, kernels[0])
+    lo = ours["dispatch"]["ts"]
+    hi = ours["device_wait"]["ts"] + ours["device_wait"]["dur"]
+    seen = f"dispatch {lo}, launch call {call['ts']}, kernel {k['ts']}+{k['dur']}, " \
+           f"device_wait end {hi}"
+    assert lo <= call["ts"] <= call["ts"] + call["dur"] <= hi, seen
+    assert lo <= k["ts"] <= k["ts"] + k["dur"] <= hi, seen
