@@ -18,6 +18,8 @@ from __future__ import annotations
 import threading
 from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
+from itertools import chain
+from operator import itemgetter
 
 import numpy as np
 import torch
@@ -26,6 +28,7 @@ from .. import tracing
 from ..caller import ThresholdCaller
 from ..errors import ErrorTally, ModKitError
 from ..modcodes import DNA_BASES, any_mod_code, mod_code_sort_key
+from ..motifs import STRAND_BOTH
 from ..ops.counts import (
     counts_layout, modcall_counts, modcall_counts_numpy, round_up_codes,
 )
@@ -56,12 +59,12 @@ class PileupRow:
 
 @dataclass(slots=True)
 class ColumnarRows:
-    """bedMethyl rows in columnar (struct-of-arrays) form, already sorted
-    by (position, strand, mod code). Vectorized fast path of decode_counts
-    for the no-focus pileup; consumed by BedMethylWriter.write_columnar."""
+    """bedMethyl rows in columnar (struct-of-arrays) form, already in
+    output order. Vectorized form of decode_counts (and, strands combined,
+    of combine_strand_rows); consumed by BedMethylWriter.write_columnar."""
 
     pos: np.ndarray  # int64 absolute genome positions
-    strand: np.ndarray  # int8 0 '+', 1 '-'
+    strand: np.ndarray  # int8 0 '+', 1 '-', 2 '.'
     code_idx: np.ndarray  # int32 index into labels
     labels: list  # code label strings per index
     valid: np.ndarray
@@ -72,6 +75,7 @@ class ColumnarRows:
     n_filt: np.ndarray
     n_diff: np.ndarray
     n_nocall: np.ndarray
+    motif_idx: np.ndarray  # int32 motif id of the row's label, -1 none
 
     def __len__(self) -> int:
         return len(self.pos)
@@ -678,9 +682,11 @@ class TileProcessor:
                     if self.opts.combine_strands and pending.focus is not None:
                         res = combine_strand_rows(res, pending.focus)
                 out.append((key, res))
+            _count_format_route("rows")
             return out
 
-        if pending.focus is None and not self.opts.combine_strands:
+        plain = pending.focus is None and not self.opts.combine_strands
+        if plain:
             if (
                 pending.native is not None
                 and chrom is not None
@@ -701,11 +707,21 @@ class TileProcessor:
                     space,
                 )
                 if out is not None:
+                    _count_format_route("text")
                     return FormattedRows(out[0], out[1])
+        if plain or chrom is not None:
+            # ``chrom`` comes with a bedMethyl writer, which renders the
+            # motif route's columns too (labels, strand '.')
+            _count_format_route(
+                "columnar" if pending.focus is None else "columnar_motif"
+            )
             return decode_counts_columnar(
                 counts, self._observed(pending), pending.vocab,
                 pending.start, combine_mods=self.opts.combine_mods,
+                focus=pending.focus,
+                combine_strands=self.opts.combine_strands,
             )
+        _count_format_route("rows")
         decoded = decode_counts(
             counts, self._observed(pending), pending.vocab, pending.start,
             combine_mods=self.opts.combine_mods,
@@ -714,6 +730,10 @@ class TileProcessor:
         if self.opts.combine_strands and pending.focus is not None:
             decoded = combine_strand_rows(decoded, pending.focus)
         return decoded
+
+
+def _count_format_route(route: str) -> None:
+    tracing.count("format_route", tracing.FORMAT_ROUTES.index(route))
 
 
 @contextmanager
@@ -798,68 +818,208 @@ def decode_counts_columnar(
     vocab: list,
     tile_start: int,
     combine_mods: bool = False,
+    focus=None,
+    combine_strands: bool = False,
 ) -> ColumnarRows:
-    """Vectorized count tensor -> columnar bedMethyl rows (no-focus path).
+    """Vectorized count tensor -> columnar bedMethyl rows.
 
-    Emits exactly the rows of ``decode_counts(focus=None)`` — one row per
-    (position, strand, primary base, observed mod code), sorted within a
-    position by (strand, mod-code order) — but as flat numpy columns built
-    with a handful of array ops instead of a Python row loop
-    (pileup/mod.rs:412 FeatureVector::decode equivalence unchanged).
+    Emits exactly the rows of ``decode_counts`` — one row per (position,
+    strand, primary base, observed mod code), sorted within a position by
+    (strand, mod-code order) — but as flat numpy columns built with a
+    handful of array ops instead of a Python row loop (pileup/mod.rs:412
+    FeatureVector::decode equivalence unchanged).
+
+    With ``focus`` only the focus positions are read, each row repeats
+    once per motif id of its position and strand, and with
+    ``combine_strands`` the rows are those of ``combine_strand_rows``
+    (pileup/mod.rs:469): each '+' focus position summed with its motif's
+    '-' partner into strand '.'.
     """
     p, _, k = counts.shape
     m = len(vocab)
+    if focus is None:
+        r, j, labels, cols = _decode_cells(
+            counts.reshape(2 * p, k), observed.reshape(2 * p, 4, m), vocab,
+            combine_mods,
+        )
+        order = np.lexsort((_label_rank(labels)[j], r))
+        return ColumnarRows(
+            tile_start + (r[order] >> 1).astype(np.int64),
+            (r[order] & 1).astype(np.int8), j[order], labels,
+            *(c[order] for c in cols),
+            np.full(len(order), -1, dtype=np.int32),
+        )
+    if combine_strands:
+        return _combined_columnar(
+            counts, observed, vocab, tile_start, combine_mods, focus,
+        )
+    # the focus positions' count rows, one per (position, strand) that
+    # the strand rule admits; no other position is read
+    fi = np.flatnonzero(focus.rule[:p] >= 0)
+    rule = focus.rule[fi, None]
+    strand_ok = (rule == STRAND_BOTH) | (rule == np.arange(2))
+    r, j, labels, cols = _decode_cells(
+        counts[fi].reshape(-1, k), observed[fi].reshape(-1, 4, m),
+        vocab, combine_mods, strand_ok.reshape(-1),
+    )
+    # one row per motif id of the row's position and strand, in the id
+    # list's order; none (-1) where the list is empty
+    n_ids, first, ids = _motif_id_table(focus, fi, tile_start)
+    n = np.maximum(n_ids[r], 1)
+    rep = np.repeat(np.arange(len(r)), n)
+    k_in = np.arange(len(rep)) - np.repeat(np.cumsum(n) - n, n)
+    rr = r[rep]
+    at = np.where(n_ids[rr] > 0, first[rr] + k_in, len(ids))
+    motif = np.append(ids, -1).astype(np.int32)[at]
+    j = j[rep]
+    order = np.lexsort((_label_rank(labels)[j], rr))
+    return ColumnarRows(
+        tile_start + fi[rr[order] >> 1].astype(np.int64),
+        (rr[order] & 1).astype(np.int8), j[order], labels,
+        *(c[rep][order] for c in cols), motif[order],
+    )
+
+
+def _combined_columnar(counts, observed, vocab, tile_start, combine_mods,
+                       focus) -> ColumnarRows:
+    """The rows of ``combine_strand_rows``: for each (positive focus
+    position, motif id) of a palindromic motif, its '+' rows and its
+    partner's '-' rows summed per mod code, at the positive position with
+    strand '.', ordered by (position, the motif's place in the position's
+    list, mod-code order)."""
+    p = counts.shape[0]
+    pm = focus.positive_motifs
+    entries = list(chain.from_iterable(pm.values()))
+    ppos, mid = _id_entries(pm, map(itemgetter(1), entries))
+    # the '-' partner lies a fixed distance from the '+' focus position
+    # (Motif.negative_strand_position); non-palindromes have none
+    n_motifs = int(mid.max()) + 1 if len(mid) else 1
+    shift = np.zeros(n_motifs, dtype=np.int64)
+    palindrome = np.zeros(n_motifs, dtype=bool)
+    for i in np.unique(mid, return_index=True)[1].tolist():
+        motif, idx = entries[i]
+        palindrome[idx] = motif.is_palindrome
+        shift[idx] = motif.reverse_offset - motif.forward_offset
+    npos = ppos + shift[mid]
+    # pairs in (position, place in the position's list) order
+    order = np.argsort(ppos, kind="stable")
+    order = order[palindrome[mid[order]] & (npos[order] >= 0)]
+    ppos, npos, mid = ppos[order], npos[order], mid[order]
+    # the '-' side counts where its position is in the tile and carries
+    # the motif id
+    neg_pos, neg_mid = _id_entries(focus.neg_motif_ids)
+    lp, ln = ppos - tile_start, npos - tile_start
+    has_neg = (ln >= 0) & (ln < p) & np.isin(
+        npos * n_motifs + mid, neg_pos * n_motifs + neg_mid
+    )
+    ln[~has_neg] = 0
+    n_pairs = len(lp)
+    r, j, labels, cols = _decode_cells(
+        np.concatenate((counts[lp, 0], counts[ln, 1])),
+        np.concatenate((observed[lp, 0], observed[ln, 1])), vocab,
+        combine_mods, np.concatenate((np.ones(n_pairs, dtype=bool), has_neg)),
+    )
+    # one row per (pair, mod code): its '+' and '-' cells summed
+    n_lab = max(len(labels), 1)
+    key = r % max(n_pairs, 1) * n_lab + _label_rank(labels)[j]
+    by_key = np.argsort(key, kind="stable")
+    key = key[by_key]
+    starts = np.flatnonzero(np.diff(key, prepend=-1))
+    pi = key[starts] // n_lab
+    return ColumnarRows(
+        ppos[pi], np.full(len(pi), 2, dtype=np.int8), j[by_key[starts]],
+        labels,
+        *(np.add.reduceat(c[by_key], starts) if len(starts) else c
+          for c in cols),
+        mid[pi].astype(np.int32),
+    )
+
+
+def _decode_cells(rows, observed, vocab, combine_mods, keep=None):
+    """The cells of count rows ``rows`` [R, K] (each one position's one
+    strand; ``observed`` [R, 4, m]) that decode to a bedMethyl row
+    (pileup/mod.rs:412): each primary base with valid calls and, on it,
+    each observed code, or with ``combine_mods`` one any-mod code.
+    ``keep`` [R] drops rows. Returns (row, label index, labels, columns)
+    in (row, base, code) order, the columns being valid, n_mod, n_can,
+    n_other, n_del, n_filt, n_diff and n_nocall."""
+    n_rows, k = rows.shape
     m_pad = (k - 6) // 4 - 1
-    body = counts[:, :, 6:].reshape(p, 2, 4, m_pad + 1)
-    can_nd = body[..., 0]  # [p, 2, 4]
-    mods_nd = body[..., 1:]  # [p, 2, 4, m_pad]
-    nocall_nd = counts[:, :, 2:6]
-    mods_sum = mods_nd.sum(axis=3, dtype=np.int64)
+    body = rows[:, 6:].reshape(n_rows, 4, m_pad + 1)
+    can_nd = body[..., 0]  # [R, 4]
+    mods_nd = body[..., 1:]  # [R, 4, m_pad]
+    nocall_nd = rows[:, 2:6]
+    mods_sum = mods_nd.sum(axis=2, dtype=np.int64)
     valid_nd = can_nd + mods_sum
-    total_valid = valid_nd.sum(axis=2)
-    total_nocall = nocall_nd.sum(axis=2, dtype=np.int64)
+    total_valid = valid_nd.sum(axis=1)
+    total_nocall = nocall_nd.sum(axis=1, dtype=np.int64)
+    has = valid_nd > 0
+    if keep is not None:
+        has &= keep[:, None]
 
     if combine_mods:
-        pi, s, b = np.nonzero(valid_nd)
+        r, b = np.nonzero(has)
         j = b.astype(np.int32)  # one any-mod row per base
         labels = [any_mod_code(bb) for bb in DNA_BASES]
-        n_can = can_nd[pi, s, b]
-        n_mod = valid_nd[pi, s, b] - n_can
-        n_other = np.zeros(len(pi), dtype=np.int64)
+        n_can = can_nd[r, b]
+        n_mod = valid_nd[r, b] - n_can
+        n_other = np.zeros(len(r), dtype=np.int64)
     else:
-        if m == 0:
+        if not vocab:
             e = np.empty(0, dtype=np.int64)
-            return ColumnarRows(
-                e, e.astype(np.int8), e.astype(np.int32), [],
-                e, e, e, e, e, e, e, e,
-            )
-        mask = observed & (valid_nd > 0)[..., None]
-        pi, s, b, j = np.nonzero(mask)
+            return e, e.astype(np.int32), [], (e,) * 8
+        r, b, j = np.nonzero(observed & has[..., None])
         j = j.astype(np.int32)
         labels = list(vocab)
-        n_mod = mods_nd[pi, s, b, j]
-        n_other = mods_sum[pi, s, b] - n_mod
-        n_can = can_nd[pi, s, b]
+        n_mod = mods_nd[r, b, j]
+        n_other = mods_sum[r, b] - n_mod
+        n_can = can_nd[r, b]
 
-    valid = valid_nd[pi, s, b]
-    n_nocall = nocall_nd[pi, s, b]
-    n_del = counts[pi, s, 0]
-    n_filt = counts[pi, s, 1]
-    n_diff = (total_valid[pi, s] - valid) + (total_nocall[pi, s] - n_nocall)
+    valid = valid_nd[r, b]
+    n_nocall = nocall_nd[r, b]
+    n_diff = (total_valid[r] - valid) + (total_nocall[r] - n_nocall)
+    return r, j, labels, (
+        valid, n_mod, n_can, n_other, rows[r, 0], rows[r, 1], n_diff, n_nocall,
+    )
 
-    # within-position order: strand then mod-code order (ChEBI < char)
+
+def _motif_id_table(focus, fi, tile_start):
+    """The motif ids of each focus row (focus index * 2 + strand), from
+    ``focus.pos_motif_ids`` / ``neg_motif_ids``: (ids a row, the row's
+    first index into ids, ids), each position's ids in its list's order."""
+    slot = np.full(len(focus.rule), -1, dtype=np.int64)
+    slot[fi] = np.arange(len(fi))
+    rows, ids = [], []
+    for s, id_map in enumerate((focus.pos_motif_ids, focus.neg_motif_ids)):
+        pos, mid = _id_entries(id_map)
+        rows.append(slot[pos - tile_start] * 2 + s)
+        ids.append(mid)
+    rows, ids = np.concatenate(rows), np.concatenate(ids)
+    n_ids = np.bincount(rows, minlength=2 * len(fi))
+    ids = ids[np.argsort(rows, kind="stable")]
+    return n_ids, np.cumsum(n_ids) - n_ids, ids
+
+
+def _id_entries(id_map: dict, ids=None):
+    """A {position: [ids]} map flattened, without a Python loop:
+    (position, id) arrays, each position's ids in its list's order.
+    ``ids`` iterates the ids where the lists hold more than the id."""
+    n = np.fromiter(map(len, id_map.values()), dtype=np.int64,
+                    count=len(id_map))
+    pos = np.repeat(np.fromiter(id_map, dtype=np.int64, count=len(id_map)), n)
+    if ids is None:
+        ids = chain.from_iterable(id_map.values())
+    return pos, np.fromiter(ids, dtype=np.int64, count=len(pos))
+
+
+def _label_rank(labels: list) -> np.ndarray:
+    """Each label's place in mod-code order (ChEBI < char)."""
     rank = np.empty(max(len(labels), 1), dtype=np.int32)
     for r, li in enumerate(
         sorted(range(len(labels)), key=lambda i: mod_code_sort_key(labels[i]))
     ):
         rank[li] = r
-    order = np.lexsort((rank[j], s, pi))
-    pos = tile_start + pi[order].astype(np.int64)
-    return ColumnarRows(
-        pos, s[order].astype(np.int8), j[order], labels,
-        valid[order], n_mod[order], n_can[order], n_other[order],
-        n_del[order], n_filt[order], n_diff[order], n_nocall[order],
-    )
+    return rank
 
 
 def decode_counts(

@@ -435,7 +435,7 @@ def _run_pileup(cfg: PileupConfig) -> dict:
                     writer.write_formatted(res)
                     n_rows += len(res)
                 elif isinstance(res, ColumnarRows):
-                    writer.write_columnar(chrom, res)
+                    writer.write_columnar(chrom, res, motif_labels)
                     n_rows += len(res)
                 else:
                     for _pos, rows in res:
@@ -516,6 +516,10 @@ def _run_pileup(cfg: PileupConfig) -> dict:
                 pend = None
             else:
                 pend = proc.launch_tile(reader, tid, start, end, focus)
+            if pend is None:
+                tracing.count(
+                    "format_route", tracing.FORMAT_ROUTES.index("none")
+                )
             if finish_in_worker and pend is not None:
                 if isinstance(writer, BedMethylWriter):
                     pend = proc.finish_tile(

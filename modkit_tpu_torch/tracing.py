@@ -42,8 +42,10 @@ and of zero length, so each tile has one of each.
 Counters, per tile: ``reads_decoded`` (reads the tile's decode went
 through, used and skipped), ``events``, ``m_pad``, ``route`` (an index
 into ``ROUTES``), ``bytes_up`` (the staging buffer), ``bytes_down`` (the
-states), ``rows`` and ``out_bytes`` (the text of natively formatted rows;
-the writer renders the other routes' rows itself).
+states), ``rows``, ``out_bytes`` (the text of natively formatted rows;
+the writer renders the other routes' rows itself) and ``format_route``
+(an index into ``FORMAT_ROUTES``: how the tile's counts became rows,
+``none`` where nothing was launched).
 
 In ``trace.json`` a span's ``ts`` is, as torch (2.11) exports its own
 events, the wall clock less the trace's ``baseTimeNanoseconds``, in µs:
@@ -64,8 +66,9 @@ SPANS = ("tile", "queued", "decode", "export", "upload", "dispatch",
          "device_wait", "histogram", "format", "held", "writer_wait", "write",
          "estimate")
 COUNTERS = ("reads_decoded", "events", "m_pad", "route", "bytes_up",
-            "bytes_down", "rows", "out_bytes")
+            "bytes_down", "rows", "out_bytes", "format_route")
 ROUTES = ("none", "quals", "f32", "host")
+FORMAT_ROUTES = ("none", "text", "columnar", "columnar_motif", "rows")
 # the stages that launch a tile and those that finish it, both on a tile
 # worker unless the writer's thread finishes tiles
 LAUNCH_STAGES = ("decode", "export", "upload", "dispatch")
@@ -210,7 +213,9 @@ class Records:
                 spans.append((name, thread, tile, start, end))
             else:
                 counters.setdefault(tile, {})[name] = (
-                    ROUTES[value] if name == "route" else value)
+                    ROUTES[value] if name == "route"
+                    else FORMAT_ROUTES[value] if name == "format_route"
+                    else value)
         pids = {t: _PID + 1 + i for i, t in enumerate(dict.fromkeys(
             s[1] for s in spans))}
         events = [{"ph": "M", "name": "process_name", "pid": _PID,

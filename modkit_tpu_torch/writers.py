@@ -133,14 +133,26 @@ class BedMethylWriter:
             self.rows_written += 1
         self._fh.write("".join(buf))
 
-    def write_columnar(self, chrom: str, cols) -> None:
-        """Vectorized row emission from a ColumnarRows batch (engine.py)."""
+    def write_columnar(self, chrom: str, cols, motif_labels=()) -> None:
+        """Vectorized row emission from a ColumnarRows batch (engine.py):
+        the rows of ``write_rows``, names ``code,label`` where it gives
+        them (two or more motif labels and a row's motif id)."""
         n = len(cols)
         if n == 0:
             return
         tab, sp = "\t", self.space
         names = [str(c) for c in cols.labels]
-        sc = ("+", "-")
+        name_idx = cols.code_idx
+        n_labels = len(motif_labels)
+        if n_labels >= 2:
+            labeled = (cols.motif_idx >= 0) & (cols.motif_idx < n_labels)
+            name_idx = np.where(
+                labeled,
+                len(names) + name_idx * n_labels + cols.motif_idx,
+                name_idx,
+            )
+            names += [f"{c},{lab}" for c in names for lab in motif_labels]
+        sc = ("+", "-", ".")
         buf = [
             f"{chrom}{tab}{p}{tab}{p + 1}{tab}{names[j]}{tab}"
             f"{va}{tab}{sc[s]}{tab}{p}{tab}{p + 1}{tab}255,0,0{tab}"
@@ -148,7 +160,7 @@ class BedMethylWriter:
             f"{nd}{sp}{nf}{sp}{ndf}{sp}{nn}\n"
             for p, s, j, va, pc, nm, ncn, no, nd, nf, ndf, nn in zip(
                 cols.pos.tolist(), cols.strand.tolist(),
-                cols.code_idx.tolist(), cols.valid.tolist(),
+                name_idx.tolist(), cols.valid.tolist(),
                 cols.percent_strings(), cols.n_mod.tolist(),
                 cols.n_can.tolist(), cols.n_other.tolist(),
                 cols.n_del.tolist(), cols.n_filt.tolist(),

@@ -33,7 +33,6 @@ COPIES = (
     "motifs.py",
     "position_filter.py",
     "summary.py",
-    "writers.py",
     "engines/__init__.py",
     "engines/adjust.py",
     "engines/bedmethyl_tools.py",
@@ -86,10 +85,14 @@ PORTS = {
                                   "device",
     "pileup/engine.py": "the kernels' wrappers, CUDA streams and pinned "
                         "copies instead of jitted calls; a decoded tile's "
-                        "blocks leave the reader's map",
+                        "blocks leave the reader's map; with a focus or "
+                        "combined strands, bedMethyl rows decode "
+                        "column-wise over the focus positions only",
     "pileup/runner.py": "the run's device, torch.profiler; the shard "
                         "barrier is sync_processes, not jax's; the tile "
                         "workers share the run's reader",
+    "writers.py": "BedMethylWriter.write_columnar renders the motif "
+                  "route's columns too: motif labels and strand '.'",
 }
 
 

@@ -54,6 +54,35 @@ def test_preset_traditional(tmp_path, synth, op_calls):
     assert op_calls.get("threshold_state_f32")
 
 
+MOTIF_MODES = {
+    # focus positions with two motif ids, so rows read "code,motif"
+    "motifs": dict(motifs=["CG", "0", "CGCG", "0", "GATC", "1"]),
+    "non_palindrome": dict(motifs=["CHG", "0"]),
+    "include_bed": dict(),
+    "cpg_combine_mods": dict(cpg=True, combine_mods=True),
+    "traditional_mixed_delimiters": dict(preset="traditional",
+                                         mixed_delimiters=True),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(MOTIF_MODES))
+def test_motif_route_modes(tmp_path, synth, op_calls, mode):
+    """The motif route's rows: labels, strands, the include-bed focus,
+    combined codes and the writer's delimiters."""
+    kw = dict(no_filtering=True, reference_fasta=synth[1], **MOTIF_MODES[mode])
+    if mode == "include_bed":
+        bed = tmp_path / "focus.bed"
+        bed.write_text(
+            "synth1\t100\t6000\t.\t0\t+\n"
+            "synth1\t8000\t15000\t.\t0\t-\n"
+            "synth1\t17000\t24000\t.\t0\t.\n"
+            "synth1\t26000\t29000\n"
+        )
+        kw["include_bed"] = str(bed)
+    run_both(tmp_path, synth[0], kw, kw)
+    assert op_calls
+
+
 def test_partition_tags(tmp_path, synth, op_calls):
     kw = dict(no_filtering=True, partition_tags=["HP"])
     names = run_both(tmp_path, synth[2], kw, kw, out_is_dir=True)
