@@ -22,6 +22,8 @@ import sys
 import time
 from dataclasses import dataclass, field
 
+import numpy as np
+
 from .. import tracing
 from ..caller import ThresholdCaller
 from ..io.bam import BamReader
@@ -336,13 +338,20 @@ def _run_pileup(cfg: PileupConfig) -> dict:
     if position_filter is not None:
         spans = position_filter.optimize_spans(spans)
 
+    # a tile's focus is scanned here, on the main thread, before the tile
+    # is submitted: its span and counters carry the index that the tile
+    # loop below gives the tile
+    scans_focus = motifs is not None or position_filter is not None
+
     def iter_tiles():
+        tile_idx = 0
         for tid, rstart, rend in spans:
             chrom = header.tid2name(tid)
             start = rstart
             while start < rend:
                 end = min(start + cfg.interval_size, rend)
                 focus = None
+                scan_start = time.perf_counter_ns()
                 if motifs is not None:
                     if cfg.combine_strands:
                         focus, end = scan_focus_positions_combine(
@@ -365,11 +374,27 @@ def _run_pileup(cfg: PileupConfig) -> dict:
                         position_filter.rule_array(tid, start, end),
                         {}, {}, {},
                     )
+                scan_end = (
+                    time.perf_counter_ns() if scans_focus else scan_start
+                )
                 done = completed_tiles.get((tid, start))
                 if done is not None:
                     start = done["end"]
                     continue
+                tracing.emit(
+                    "span", "focus_scan", tile_idx, scan_start, scan_end, 0
+                )
+                tracing.count(
+                    "focus_positions",
+                    0 if focus is None else np.count_nonzero(focus.rule >= 0),
+                    tile_idx,
+                )
+                tracing.count(
+                    "tile_extend_bp",
+                    max(0, end - start - cfg.interval_size), tile_idx,
+                )
                 yield tid, chrom, start, end, focus
+                tile_idx += 1
                 start = end
 
     n_rows = 0

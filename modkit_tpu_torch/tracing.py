@@ -34,10 +34,16 @@ the rest on the thread that writes):
 - ``held``: from the worker's return to the writer taking the tile;
 - ``writer_wait``: the writer blocked on the tile's result;
 - ``write``: the rows into the output;
-- ``estimate``: the threshold estimate before the first tile (tile -1).
+- ``estimate``: the threshold estimate before the first tile (tile -1);
+- ``focus_scan``: the tile's focus positions found in the reference
+  (``--cpg``, ``--motif``, with ``--combine-strands`` the extension of
+  the tile's end past a motif on its boundary) or read from
+  ``--include-bed``, on the main thread before the tile is submitted, so
+  it ends before the tile's ``tile`` span starts.
 
 A stage that a tile's route skips still gets its span, at the tile's end
-and of zero length, so each tile has one of each.
+and of zero length, so each tile has one of each; a tile with no focus
+gets a ``focus_scan`` of zero length where its scan would have been.
 
 Counters, per tile: ``reads_decoded`` (reads the tile's decode went
 through, used and skipped), ``events``, ``m_pad``, ``route`` (an index
@@ -45,7 +51,10 @@ into ``ROUTES``), ``bytes_up`` (the staging buffer), ``bytes_down`` (the
 states), ``rows``, ``out_bytes`` (the text of natively formatted rows;
 the writer renders the other routes' rows itself) and ``format_route``
 (an index into ``FORMAT_ROUTES``: how the tile's counts became rows,
-``none`` where nothing was launched).
+``none`` where nothing was launched), ``focus_positions`` (the positions
+in the tile's focus, 0 without one) and ``tile_extend_bp`` (how far
+``--combine-strands`` moved the tile's end past its start plus the
+interval size, 0 elsewhere).
 
 In ``trace.json`` a span's ``ts`` is, as torch (2.11) exports its own
 events, the wall clock less the trace's ``baseTimeNanoseconds``, in µs:
@@ -64,9 +73,10 @@ from contextlib import contextmanager
 
 SPANS = ("tile", "queued", "decode", "export", "upload", "dispatch",
          "device_wait", "histogram", "format", "held", "writer_wait", "write",
-         "estimate")
+         "estimate", "focus_scan")
 COUNTERS = ("reads_decoded", "events", "m_pad", "route", "bytes_up",
-            "bytes_down", "rows", "out_bytes", "format_route")
+            "bytes_down", "rows", "out_bytes", "format_route",
+            "focus_positions", "tile_extend_bp")
 ROUTES = ("none", "quals", "f32", "host")
 FORMAT_ROUTES = ("none", "text", "columnar", "columnar_motif", "rows")
 # the stages that launch a tile and those that finish it, both on a tile
@@ -81,8 +91,8 @@ _NAMES = SPANS + COUNTERS
 _ID = {n: i for i, n in enumerate(_NAMES)}
 _BIT = {n: 1 << i for i, n in enumerate(SPANS)}
 # a record: four int64 words (name | thread << 8 | (tile + 1) << 24, start,
-# end, value); a genome at 100 kb tiles (about 31 000 tiles, 21 records a
-# tile) keeps about 21 MB
+# end, value); a genome at 100 kb tiles (about 31 000 tiles, 24 records a
+# tile) keeps about 24 MB
 RECORD_BYTES = 32
 # process ids of the program's rows in a trace, clear of any real pid
 _PID = 1 << 30

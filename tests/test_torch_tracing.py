@@ -2,10 +2,10 @@
 spans and counters of every tile, on the CPU route.
 
 With no sink nothing is kept; with a recording sink every tile has one
-span of each stage, nested in time inside its ``tile`` span, its counters
-add up to the run's, and the rows are those of a run with no sink.
-``MODKIT_TPU_PROFILE`` writes the spans into ``trace.json`` on the
-profiler's clock.
+span of each stage, nested in time inside its ``tile`` span (its
+``focus_scan`` just before it), its counters add up to the run's, and the
+rows are those of a run with no sink. ``MODKIT_TPU_PROFILE`` writes the
+spans into ``trace.json`` on the profiler's clock.
 """
 
 import json
@@ -20,21 +20,37 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from modkit_tpu_torch import native, tracing
+from modkit_tpu_torch.io.fasta import FastaReader
+from modkit_tpu_torch.motifs import (
+    parse_motifs, scan_focus_positions, scan_focus_positions_combine,
+)
 from modkit_tpu_torch.pileup.runner import PileupConfig, run_pileup
 from modkit_tpu_torch.utils.synth import make_synthetic_modbam
 
 TILE = 20_000
 # a tile's spans; ``estimate`` runs once, before the first tile
 TILE_SPANS = ("tile", "queued", "decode", "export", "upload", "dispatch",
-              "device_wait", "histogram", "format", "held", "writer_wait", "write")
+              "device_wait", "histogram", "format", "held", "writer_wait", "write",
+              "focus_scan")
+CHROM = "synth1"  # make_synthetic_modbam's contig
+# the flags of a run with a focus, beside the reference (``fasta``)
+FOCUS = {"none": {}, "cpg": {"cpg": True},
+         "cpg_combined": {"cpg": True, "combine_strands": True}}
 
 
 @pytest.fixture(scope="module")
 def bam(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("tracing") / "s.bam")
     make_synthetic_modbam(path, n_reads=1200, read_len=2000, coverage=20.0,
-                          seed=5, contig_len=150_000)
+                          seed=5, contig_len=150_000, fasta_out=path[:-4] + ".fa")
     return path
+
+
+def focus_flags(bam, focus):
+    kw = dict(FOCUS[focus])
+    if kw:
+        kw["reference_fasta"] = bam[:-4] + ".fa"
+    return kw
 
 
 @pytest.fixture(autouse=True)
@@ -45,8 +61,8 @@ def no_profile(monkeypatch):
     tracing.set_sink(None)
 
 
-def pileup(bam, out, **kw):
-    return run_pileup(PileupConfig(in_bam=bam, out=str(out), interval_size=TILE,
+def pileup(bam, out, interval_size=TILE, **kw):
+    return run_pileup(PileupConfig(in_bam=bam, out=str(out), interval_size=interval_size,
                                    suppress_progress=True, device="cpu", **kw))
 
 
@@ -82,11 +98,14 @@ def test_no_sink_keeps_nothing(bam, tmp_path):
     assert tracing._sink is None
 
 
-@pytest.mark.parametrize("route", ["native", "empty", "python"])
+@pytest.mark.parametrize("route", ["native", "empty", "python", "cpg_combined"])
 def test_every_tile_has_each_stage_inside_its_tile(bam, tmp_path, monkeypatch, route):
     """On the native route, where every other tile has no reads (its
-    stages then span zero time at the tile's end), and on the Python event
-    route (one launcher, the native decoder off)."""
+    stages then span zero time at the tile's end), on the Python event
+    route (one launcher, the native decoder off), and with ``--cpg
+    --combine-strands`` (the focus scanned on the main thread before each
+    tile's submission; without a focus its span has zero length)."""
+    kw = focus_flags(bam, route if route in FOCUS else "none")
     if route == "python":
         monkeypatch.setattr(native, "available", lambda: False)
     if route == "empty":
@@ -100,7 +119,7 @@ def test_every_tile_has_each_stage_inside_its_tile(bam, tmp_path, monkeypatch, r
             return real(self, reader, tid, start, end, focus)
 
         monkeypatch.setattr(TileProcessor, "launch_tile", half)
-    res, recs = recorded(bam, tmp_path / "a.bed")
+    res, recs = recorded(bam, tmp_path / "a.bed", **kw)
     spans = [r for r in recs if r[0] in tracing.SPANS]
     tiles = {r[2]: r for r in spans if r[0] == "tile"}
     assert len(tiles) == -(-150_000 // TILE)
@@ -111,13 +130,43 @@ def test_every_tile_has_each_stage_inside_its_tile(bam, tmp_path, monkeypatch, r
         if name == "estimate":
             continue
         _, _, _, t0, t1, _ = tiles[tile]
-        assert t0 <= start <= end <= t1, (name, tile)
+        if name == "focus_scan":
+            assert start <= end <= t0, tile
+        else:
+            assert t0 <= start <= end <= t1, (name, tile)
+    scans = [r[4] - r[3] for r in spans if r[0] == "focus_scan"]
+    assert all(d > 0 for d in scans) if kw else not any(scans)
     workers = {r[1] for r in spans if r[0] in tracing.WORKER_STAGES}
-    main = {r[1] for r in spans if r[0] in ("write", "writer_wait", "tile")}
+    main = {r[1] for r in spans if r[0] in ("write", "writer_wait", "tile", "focus_scan")}
     assert main == {threading.main_thread().name} and not workers & main
 
 
-def test_counters_add_up_and_rows_are_unchanged(bam, tmp_path, monkeypatch):
+def _boundary_cpg_extension(fasta_path, length, interval):
+    """The bases by which ``--cpg --combine-strands`` moves tile ends, from
+    the reference alone. A CpG's C at p is its '+' site and its G at p + 1
+    the '-' site, each with a footprint of two bases, so [p, p + 3) stays
+    in one tile: a tile end inside it moves to p + 3, until no CpG spans
+    the end, and the next tile starts there."""
+    seq = FastaReader(fasta_path).fetch(CHROM, 0, length).tobytes()
+    cpg = {i for i in range(length - 1) if seq[i:i + 2] == b"CG"}
+    start = extended = 0
+    while start < length:
+        nominal = end = min(start + interval, length)
+        while end < length and (end - 1 in cpg or end - 2 in cpg):
+            end = (end - 1 if end - 1 in cpg else end - 2) + 3
+        end = min(end, length)
+        extended += end - nominal
+        start = end
+    return extended
+
+
+@pytest.mark.parametrize("focus", list(FOCUS))
+def test_counters_add_up_and_rows_are_unchanged(bam, tmp_path, monkeypatch, focus):
+    """Without a focus (20 kb tiles), and with ``--cpg``, strands combined
+    or not, at 2 kb tiles: about one tile end in 16 falls inside a CpG."""
+    kw = focus_flags(bam, focus)
+    if kw:
+        kw["interval_size"] = 2_000
     events = []
     real = native.decode_tile_bgzf
 
@@ -128,9 +177,9 @@ def test_counters_add_up_and_rows_are_unchanged(bam, tmp_path, monkeypatch):
         return out
 
     monkeypatch.setattr(native, "decode_tile_bgzf", counted)
-    res, recs = recorded(bam, tmp_path / "traced.bed")
+    res, recs = recorded(bam, tmp_path / "traced.bed", **kw)
     n_events = sum(events)
-    plain = pileup(bam, tmp_path / "plain.bed")
+    plain = pileup(bam, tmp_path / "plain.bed", **kw)
     assert (tmp_path / "traced.bed").read_bytes() == (tmp_path / "plain.bed").read_bytes()
     assert res["rows"] == plain["rows"]
 
@@ -139,15 +188,42 @@ def test_counters_add_up_and_rows_are_unchanged(bam, tmp_path, monkeypatch):
 
     assert total("rows") == res["rows"]
     assert total("events") == n_events > 0
-    assert total("out_bytes") == os.path.getsize(tmp_path / "traced.bed")
+    # the writer renders the motif route's rows itself: no natively formatted text
+    assert total("out_bytes") == (0 if kw else os.path.getsize(tmp_path / "traced.bed"))
     assert total("bytes_down") == total("events")  # one state byte an event
     assert total("reads_decoded") >= res["reads_used"] + res["reads_skipped"]
     assert {tracing.ROUTES[r[5]] for r in recs if r[0] == "route"} == {"quals"}
 
+    n_tiles = sum(1 for r in recs if r[0] == "tile")
+    for name in ("focus_positions", "tile_extend_bp"):
+        assert sorted(r[2] for r in recs if r[0] == name) == list(range(n_tiles))
+    length = 150_000
+    if focus == "none":
+        expected = 0
+    else:
+        motifs = parse_motifs([], True)
+        fasta = FastaReader(kw["reference_fasta"])
+        if focus == "cpg":
+            # each tile's scan of its own bases: a CpG across a tile end is in neither
+            scans = [scan_focus_positions(motifs, fasta, CHROM, a, min(a + 2_000, length),
+                                          None, 0) for a in range(0, length, 2_000)]
+        else:
+            scans = [scan_focus_positions_combine(
+                motifs, fasta, CHROM, 0, length, 0, length)[0]]
+        expected = sum(int((f.rule >= 0).sum()) for f in scans)
+        assert expected > 1000
+    assert total("focus_positions") == expected
+    extended = 0
+    if focus == "cpg_combined":
+        extended = _boundary_cpg_extension(kw["reference_fasta"], length, 2_000)
+        assert extended > 0
+    assert total("tile_extend_bp") == extended
 
-def test_profile_on_the_cpu_writes_the_spans(bam, tmp_path, monkeypatch):
+
+@pytest.mark.parametrize("focus", ["none", "cpg_combined"])
+def test_profile_on_the_cpu_writes_the_spans(bam, tmp_path, monkeypatch, focus):
     monkeypatch.setenv("MODKIT_TPU_PROFILE", str(tmp_path / "prof"))
-    pileup(bam, tmp_path / "a.bed")
+    pileup(bam, tmp_path / "a.bed", **focus_flags(bam, focus))
     with open(tmp_path / "prof" / "trace.json") as fh:
         doc = json.load(fh)
     xs = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
@@ -156,6 +232,18 @@ def test_profile_on_the_cpu_writes_the_spans(bam, tmp_path, monkeypatch):
     assert sorted(e["args"]["tile"] for e in tiles) == list(range(len(tiles)))
     assert all(e["args"]["route"] in tracing.ROUTES and "rows" in e["args"]
                for e in tiles)
+    # the focus scan: one a tile, on the main thread's row; its counters
+    # under the tile's ``tile`` span
+    rows = {e["pid"]: e["args"]["name"] for e in doc["traceEvents"]
+            if e.get("ph") == "M" and e.get("name") == "process_name"}
+    scans = [e for e in xs if e["name"] == "focus_scan"]
+    assert sorted(e["args"]["tile"] for e in scans) == list(range(len(tiles)))
+    assert {rows[e["pid"]] for e in scans} == {
+        f"modkit_tpu_torch {threading.main_thread().name}"}
+    assert all(e["dur"] > 0 for e in scans) == (focus != "none")
+    positions = [e["args"]["focus_positions"] for e in tiles]
+    assert all(p > 0 for p in positions) if focus != "none" else not any(positions)
+    assert all(e["args"]["tile_extend_bp"] >= 0 for e in tiles)
     # in-flight tiles take lanes of one row and never overlap on a lane
     lanes: dict = {}
     for e in sorted(tiles, key=lambda e: e["ts"]):
