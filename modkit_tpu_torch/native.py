@@ -1,4 +1,4 @@
-"""ctypes bindings to the native C++ runtime (native/modkit_native.cpp).
+"""ctypes bindings to the port's native C++ runtime (csrc/modkit_native.cpp).
 
 The port's own copy of ``modkit_tpu.native``: it holds what the pileup,
 the all-C++ CPU baseline (``cpu_baseline.py``), threshold sampling, the
@@ -12,10 +12,15 @@ TSV stream (``extract_full_stream``), the columnar bedMethyl parse
 ``EntropyBatch``) and the staged decode micro-bench (``bench_decode``) — in
 multithreaded C++.
 
-The shared library builds on first use with ``g++`` from the repository's
-``native/modkit_native.cpp`` into ``modkit_tpu_torch/_build/``, under a file
-name that carries the hash of the source and flags, so a stale build is
-never loaded. Set ``MODKIT_TPU_DISABLE_NATIVE=1`` to force the Python path;
+The shared library builds on first use with ``g++`` from the port's own
+copy of the runtime, ``modkit_tpu_torch/csrc/modkit_native.cpp`` (the
+repository's ``native/modkit_native.cpp`` stays the JAX package's), into
+``modkit_tpu_torch/_build/``, under a file name that carries the hash of
+the source and flags, so a stale build is never loaded. The copy differs
+in its tile decode: each read's alignment is walked as runs clipped to the
+tile and its focus, and no-calls are counted in place (``NativeTile``'s
+``aligned_columns`` and ``walked_columns`` say how much of the old per-base
+walk is left). Set ``MODKIT_TPU_DISABLE_NATIVE=1`` to force the Python path;
 it is read on every call, so a run can switch paths within one process.
 """
 
@@ -31,8 +36,8 @@ import numpy as np
 
 from .sobuild import build_once
 
-_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_REPO, "native", "modkit_native.cpp")
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                    "modkit_native.cpp")
 
 # index order must match enum Err in modkit_native.cpp
 ERR_KINDS = (
@@ -79,6 +84,8 @@ class _MkTileOut(ctypes.Structure):
         ("handle", ctypes.c_void_p),
         ("n_parts", ctypes.c_int32),
         ("part_keys", ctypes.POINTER(ctypes.c_char_p)),
+        ("aligned_columns", ctypes.c_int64),
+        ("walked_columns", ctypes.c_int64),
     ]
 
 
@@ -138,15 +145,15 @@ _LINK_CHOICES = (
 def _build(so_path: str) -> None:
     base = [os.environ.get("CXX", "g++"), *_CXX_FLAGS, "-o", so_path, _SRC,
             "-lz"]
+    err = b""
     for extra in _LINK_CHOICES:
         try:
             subprocess.run(base + extra, check=True, capture_output=True)
             return
-        except subprocess.CalledProcessError:
-            continue
+        except subprocess.CalledProcessError as e:
+            err = e.stderr
     raise RuntimeError(
-        "failed to build native/modkit_native.cpp; run `make -C native` "
-        "for the compiler output"
+        f"failed to build {_SRC}:\n{err.decode(errors='replace')}"
     )
 
 
@@ -701,6 +708,10 @@ class NativeTile:
         self.m = max(int(out.m), 1)
         self.n_used = int(out.n_used)
         self.n_skipped = int(out.n_skipped)
+        # the aligned columns of the decoded reads, and the columns the walk
+        # clipped to the tile (and its focus) visited
+        self.aligned_columns = int(out.aligned_columns)
+        self.walked_columns = int(out.walked_columns)
         self.errors = {
             ERR_KINDS[i]: int(out.err_counts[i])
             for i in range(len(ERR_KINDS))

@@ -299,6 +299,8 @@ class TileProcessor:
             if res is not None:
                 tracing.count("reads_decoded", res.n_used + res.n_skipped)
                 tracing.count("events", res.n_events)
+                tracing.count("aligned_columns", res.aligned_columns)
+                tracing.count("walked_columns", res.walked_columns)
                 with self._stats_lock:
                     self.n_used += res.n_used
                     self.n_skipped += res.n_skipped

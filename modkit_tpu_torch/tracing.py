@@ -54,7 +54,11 @@ the writer renders the other routes' rows itself) and ``format_route``
 ``none`` where nothing was launched), ``focus_positions`` (the positions
 in the tile's focus, 0 without one) and ``tile_extend_bp`` (how far
 ``--combine-strands`` moved the tile's end past its start plus the
-interval size, 0 elsewhere).
+interval size, 0 elsewhere); on the native decode's route
+``aligned_columns`` (the aligned columns of the tile's decoded reads, each
+read whole) and ``walked_columns`` (the columns its walk visited, each
+read clipped to the tile and, with a focus, to the focus positions): their
+ratio is the share of a per-base walk the decode still does.
 
 In ``trace.json`` a span's ``ts`` is, as torch (2.11) exports its own
 events, the wall clock less the trace's ``baseTimeNanoseconds``, in µs:
@@ -76,7 +80,8 @@ SPANS = ("tile", "queued", "decode", "export", "upload", "dispatch",
          "estimate", "focus_scan")
 COUNTERS = ("reads_decoded", "events", "m_pad", "route", "bytes_up",
             "bytes_down", "rows", "out_bytes", "format_route",
-            "focus_positions", "tile_extend_bp")
+            "focus_positions", "tile_extend_bp", "aligned_columns",
+            "walked_columns")
 ROUTES = ("none", "quals", "f32", "host")
 FORMAT_ROUTES = ("none", "text", "columnar", "columnar_motif", "rows")
 # the stages that launch a tile and those that finish it, both on a tile

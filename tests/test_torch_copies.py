@@ -9,9 +9,12 @@ neither list fails the last test, so a new copy cannot go unchecked.
 """
 
 import filecmp
+import hashlib
 import os
 
 import pytest
+
+from modkit_tpu_torch import native
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "modkit_tpu_torch")
@@ -94,6 +97,48 @@ PORTS = {
     "writers.py": "BedMethylWriter.write_columnar renders the motif "
                   "route's columns too: motif labels and strand '.'",
 }
+
+
+# files of the port that are copies of a file outside modkit_tpu, with the
+# original and the reason they differ
+NATIVE_PORTS = {
+    "csrc/modkit_native.cpp": (
+        "native/modkit_native.cpp",
+        "the tile decode (mk_decode_tile) walks each read's alignment as "
+        "CIGAR runs clipped to the tile and its focus, counts no-calls and "
+        "deletions straight into per-thread tile histograms, and reports "
+        "aligned_columns and walked_columns; its output equals the "
+        "original's (tests/test_torch_decode_walk.py)",
+    ),
+}
+
+
+@pytest.mark.parametrize("rel", list(NATIVE_PORTS))
+def test_native_port_differs_from_its_original(rel):
+    original, _why = NATIVE_PORTS[rel]
+    assert os.path.exists(os.path.join(REPO, original))
+    assert not filecmp.cmp(os.path.join(PORT, rel), os.path.join(REPO, original),
+                           shallow=False)
+
+
+def test_native_runtime_builds_from_the_ports_copy():
+    """The port's library is built from csrc/modkit_native.cpp: its file
+    name carries the hash of that source (sobuild.build_once), not of
+    native/modkit_native.cpp, which the JAX package keeps loading."""
+    copy = os.path.join(PORT, "csrc", "modkit_native.cpp")
+    assert os.path.samefile(native._SRC, copy)
+    lib = native.load()
+    assert lib is not None
+
+    def built_name(src):
+        with open(src, "rb") as fh:
+            h = hashlib.sha256(fh.read())
+        h.update("\0".join([os.environ.get("CXX", "g++"), *native._CXX_FLAGS,
+                            repr(native._LINK_CHOICES)]).encode())
+        return f"libmodkit_native-{h.hexdigest()[:16]}.so"
+
+    assert os.path.basename(lib._name) == built_name(copy)
+    assert built_name(copy) != built_name(os.path.join(REPO, "native", "modkit_native.cpp"))
 
 
 @pytest.mark.parametrize("rel", COPIES)

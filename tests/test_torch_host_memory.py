@@ -11,6 +11,7 @@ so a run maps the BAM once. Here the pages each map holds are read from
 ``/proc/self/smaps``, on the CPU; the rows must not change.
 """
 
+import ctypes
 import mmap
 import os
 import threading
@@ -148,3 +149,41 @@ def test_a_run_maps_the_bam_once(bam, tmp_path, monkeypatch, threads):
         assert opened == [path]
         assert set(threading.enumerate()) <= before
     assert outs[0].read_bytes() == outs[1].read_bytes()
+
+
+
+class _MallInfo2(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_size_t) for name in (
+        "arena", "ordblks", "smblks", "hblks", "hblkhd", "usmblks", "fsmblks",
+        "uordblks", "fordblks", "keepcost")]
+
+
+def _malloc_in_use() -> int:
+    """Bytes glibc's malloc holds for the process, every arena and map."""
+    libc = ctypes.CDLL(None)
+    libc.mallinfo2.restype = _MallInfo2
+    info = libc.mallinfo2()
+    return info.uordblks + info.hblkhd
+
+
+def test_repeated_tile_decodes_hold_no_memory(bam):
+    """The BGZF inflate pool starts its threads per batch of blocks; each
+    thread's libdeflate decompressor is freed when the thread ends (held by
+    a bare ``thread_local`` pointer, one leaked a thread: about 50 kB a call
+    here, 0.5 MB a 100 kb tile of the benchmark's data)."""
+    path, contig_len, _ = bam
+    reader = BamReader(path)
+    start, end = spans(contig_len)[0]
+    chunks = reader.fetch_chunk_voffsets(0, start, end)
+
+    def decode(n):
+        for _ in range(n):
+            tile = native.decode_tile_bgzf(reader.bam_raw, chunks, 0, start, end,
+                                           n_threads=8)
+            assert tile.n_used > 0
+            del tile
+
+    decode(20)
+    before = _malloc_in_use()
+    decode(200)
+    assert _malloc_in_use() - before < 256 << 10

@@ -27,6 +27,12 @@ from modkit_tpu_torch.motifs import (
 from modkit_tpu_torch.pileup.runner import PileupConfig, run_pileup
 from modkit_tpu_torch.utils.synth import make_synthetic_modbam
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+from benchmark import gen as bench_gen, run as bench_run  # noqa: E402
+
 TILE = 20_000
 # a tile's spans; ``estimate`` runs once, before the first tile
 TILE_SPANS = ("tile", "queued", "decode", "export", "upload", "dispatch",
@@ -218,6 +224,32 @@ def test_counters_add_up_and_rows_are_unchanged(bam, tmp_path, monkeypatch, focu
         extended = _boundary_cpg_extension(kw["reference_fasta"], length, 2_000)
         assert extended > 0
     assert total("tile_extend_bp") == extended
+    # the native decode's walk: one of each a tile, the walked columns no
+    # more than the aligned ones
+    for name in ("aligned_columns", "walked_columns"):
+        assert sorted(r[2] for r in recs if r[0] == name) == list(range(n_tiles))
+    aligned = {r[2]: r[5] for r in recs if r[0] == "aligned_columns"}
+    walked = {r[2]: r[5] for r in recs if r[0] == "walked_columns"}
+    assert all(walked[t] <= aligned[t] for t in aligned)
+    assert 0 < total("walked_columns") < total("aligned_columns")
+
+
+@pytest.mark.parametrize("focus", ["none", "cpg"])
+def test_the_walk_visits_a_share_of_the_aligned_columns(tmp_path, focus):
+    """On the benchmark generator's modBAM (150 kb contig, 100 kb tiles):
+    with a CpG focus the decode walks under a tenth of the reads' aligned
+    columns (the focus columns inside each tile), without one over half
+    (the columns inside each tile)."""
+    _wl, cfg = bench_run.cell("allc-5mC5hmC-30x.pileup", {"contig_length": 150_000})
+    bench_gen.generate(cfg, 7, str(tmp_path), workers=2)
+    kw = {"cpg": True, "reference_fasta": str(tmp_path / "ref.fa")} if focus == "cpg" else {}
+    _res, recs = recorded(str(tmp_path / "reads.bam"), tmp_path / "out.bed",
+                          interval_size=100_000, no_filtering=True, **kw)
+    aligned = [r for r in recs if r[0] == "aligned_columns"]
+    walked = [r for r in recs if r[0] == "walked_columns"]
+    assert sorted(r[2] for r in aligned) == sorted(r[2] for r in walked) == [0, 1]
+    share = sum(r[5] for r in walked) / sum(r[5] for r in aligned)
+    assert (share < 0.1) if focus == "cpg" else (share > 0.5)
 
 
 @pytest.mark.parametrize("focus", ["none", "cpg_combined"])
