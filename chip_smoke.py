@@ -28,15 +28,15 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
    filled with 0x7f7f7f7f (the kernel writes every cell), each timed;
 5. the main path: ``run_pileup`` on ``cuda`` over the bench workload
    (50 000 reads x 5 kb at 25x over a 10 Mbp contig, seed 1: 100 tiles of
-   100 kb), with no filtering and with the default threshold estimate, in
-   three rounds beside the two host routes (the native threshold pass
-   under MODKIT_TPU_OFFLOAD=never, and ``use_device=False``), every run
-   byte-equal; the state kernel's launches in each device run must equal
-   the tiles with events, with no aligned copy of a view; then the pinned
-   blocks PyTorch's caching host allocator holds;
+   100 kb), with no filtering and with the default threshold estimate (its
+   sort on the host), in three rounds beside the same run on ``cpu`` (the
+   kernels' plain versions), every run byte-equal; the state kernel's
+   launches in each device run must equal the tiles with events, with no
+   aligned copy of a view; then the pinned blocks PyTorch's caching host
+   allocator holds;
 6. the count path: the Python event route (native decoder off) on a
-   2 000-read modBAM, byte-equal to the host path, with count-kernel
-   launches > 0.
+   2 000-read modBAM, byte-equal to the native route on ``cpu``, with
+   count-kernel launches > 0.
 7. one more device run traced with ``MODKIT_TPU_PROFILE`` (the card's
    activity and the program's spans on one clock): the card's busy share
    over the traced window and its busiest ops, each span in ms per tile
@@ -44,7 +44,7 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
 8. more than 8 mod codes: the runtime-M kernels of kernel A's f32 entry
    and of kernel B against their plain versions for M in {3, 9, 16}, and a 9-code pileup on ``cuda``
    through the native route (kernel A's f32 entry) and the Python event
-   route (kernel B), each byte-equal to the host C++ route;
+   route (kernel B), each byte-equal to the run on ``cpu``;
 9. the count-kernel lab (``tools/kernel_lab.py`` of the port, kernels in
    ``csrc/lab_counts.cu``) at its full size (4 194 304 events, P =
    100 000, M = 2) through its entry point, every variant and both rep8
@@ -60,8 +60,8 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
 10. CRAM input: a 10 000-read modBAM of the bench workload's shape (5 kb
     reads at 25x over a 2 Mbp contig, seed 1: 20 tiles, M = 2) written as
     a CRAM (``utils/synth_cram.py``), its pileup on ``cuda`` (the Python
-    event route, kernel B on every tile), with ``use_device=False`` and
-    through the native route of the source BAM, with no filtering and
+    event route, kernel B on every tile), on ``cpu`` and through the
+    native route of the source BAM, with no filtering and
     with the default threshold estimate: every bedMethyl of a mode
     byte-equal, kernel B launched once per tile with events, kernel A
     never on the CRAM;
@@ -71,8 +71,8 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
     tile's events with out-of-range ones among them, with one f32 launch;
 12. downstream of pileup, through the port's CLI: sample A is phase 10's
     10 000-read modBAM, sample B is ``adjust-mods --convert h m`` of it;
-    the pileup of each on ``cuda`` and under MODKIT_TPU_OFFLOAD=never,
-    byte-equal, kernel A launched once per tile with events; each
+    the pileup of each on ``cuda`` and on ``cpu``, byte-equal, kernel A
+    launched once per tile with events; each
     bedMethyl bgzipped and tabix-indexed; ``dmr pair`` over 500 regions of
     2 kb and per site, ``dmr multi`` over A, B and A, ``bedmethyl
     merge``/``tobigwig``, ``stats`` and ``localize`` on the bedMethyls of
@@ -80,16 +80,12 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
     its tools), every output byte-equal between them; ``extract calls``
     with the default threshold estimate on phase 6's modBAM and
     ``pileup-hemi --cpg`` on a 2 000-read two-strand modBAM
-    (``utils/synth_duplex.py``), each under MODKIT_TPU_OFFLOAD=always (the
-    estimate's sort on the card, counted by ``thresholds.CUDA_SORTS``) and
-    ``never`` (none), byte-equal;
+    (``utils/synth_duplex.py``), each estimate sorted on the host;
 13. the parallel paths and the last subcommands, on phase 12's sample A:
-    ``entropy --cpg`` with the default estimate under
-    MODKIT_TPU_OFFLOAD=always and ``never`` (no sort on the card in
-    either: entropy estimates on the host), byte-equal; ``motif search
-    --skip-search`` and ``motif evaluate`` on A's card and host
-    bedMethyls (two processes side by side), byte-equal, and ``motif bed
-    CG`` over its FASTA; ``run_sharded_pileup`` on a 4 x 2 grid of
+    ``entropy --cpg`` with the default estimate (sorted on the host);
+    ``motif search --skip-search`` and ``motif evaluate`` on A's cuda and
+    cpu bedMethyls (two processes side by side), byte-equal, and ``motif
+    bed CG`` over its FASTA; ``run_sharded_pileup`` on a 4 x 2 grid of
     ``cuda:0`` over phase 11's events in 8 shards, equal to the CPU grid
     with 8 launches of kernel A's f32 entry; the pileup of A with
     ``compute_devices`` giving ``cuda:0`` once and 4 times, byte-equal,
@@ -100,19 +96,17 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
 14. the bench modBAM piled up with ``--ignore h`` (kernel A's f32 entry at
     M = 1 on every tile: collapsed probabilities leave the compact
     encoding) and with ``--combine-mods`` (its probabilities stay exact ML
-    values: the quals entry at M = 2), with no filtering, on ``cuda``,
-    under MODKIT_TPU_OFFLOAD=never and with ``use_device=False``, each mode
-    byte-equal with its launches counted; then a 2 000-read modBAM with
-    six mod codes (m_pad 8: the quals entry at M = 8) on ``cuda`` and under
-    ``never``, byte-equal, one launch per tile with events (no aligned copy
-    in any of these runs);
+    values: the quals entry at M = 2), and a 2 000-read modBAM with six
+    mod codes (m_pad 8: the quals entry at M = 8), with no filtering, on
+    ``cuda`` and on ``cpu``, each byte-equal, one launch per tile with
+    events on ``cuda`` (no aligned copy in any of these runs);
 15. the all-C++ CPU baseline (``cpu_baseline.run_pileup_cpu``) over the
     bench modBAM, with no filtering and with the estimate, byte-equal to
     phase 5's cuda bedMethyls; then the measuring tools, each in its own
     process: ``tools/bench.py`` at 5 000 reads (entropy, extract and dmr
     at 1 000, one rep; its kernel rooflines at full size, warm and
     L2-cold), every ``*_identical``/``*_equal*`` field of its JSON true
-    and kernel A launched on its ``always`` runs, then ``tools/
+    and kernel A launched on its timed runs, then ``tools/
     scale_bench.py`` at 20 000 reads on ``cuda`` and with ``--device
     cpu`` and ``tools/multichip_model.py`` at 5 000 side by side, each
     exiting 0 with its JSON (the multichip pileups over 1, 2, 4 and 8
@@ -120,7 +114,7 @@ or ``/usr/local/cuda``) and ``g++``; it imports neither ``jax`` nor
     after each stage, the phases' peaks of RSS and of the BAM's mapped
     pages, the pinned blocks; on ``cuda`` the journal pileup may leave at
     most 256 MB more RSS than the default one, and the peak may exceed
-    the host route's by at most 512 MB), and no tool writing the
+    the ``--device cpu`` run's by at most 512 MB), and no tool writing the
     repository's ``BENCH_SCALE_r05.json`` or ``MULTICHIP_MODEL.json``.
 
 Before phase 3 it prints the card's measured peaks (``tools/true_bench.py``:
@@ -488,10 +482,8 @@ def counts_edge_cases(args, tm, tc, ms_tile: float) -> int:
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count, the f32 entry's count of aligned
-    copies and the count of threshold sorts on the card to 0, just before
-    a path runs."""
-    from modkit_tpu_torch import thresholds
+    """Set every kernel's launch count and the f32 entry's count of aligned
+    copies to 0, just before a path runs."""
     from modkit_tpu_torch.ops import counts, lab_counts, state
 
     state.STATE_KERNEL_LAUNCHES = 0
@@ -499,15 +491,6 @@ def reset_launches() -> None:
     state.STATE_F32_COPIES = 0
     counts.COUNT_KERNEL_LAUNCHES = 0
     lab_counts.reset_launches()
-    thresholds.CUDA_SORTS = 0
-
-
-def read_sorts() -> int:
-    """Threshold estimates' ``torch.sort`` calls on a CUDA device since
-    reset_launches()."""
-    from modkit_tpu_torch import thresholds
-
-    return thresholds.CUDA_SORTS
 
 
 def read_copies() -> int:
@@ -548,45 +531,27 @@ MAIN_ROUNDS = 3
 
 
 def phase_main(bam: str, work: str) -> int:
-    """The main path on the card against both host routes; returns the
-    state kernel's launches of the first no-filtering device run.
+    """The main path on the card against the CPU; returns the state
+    kernel's launches of the first no-filtering device run.
 
-    Routes: ``cuda`` (the state kernel, MODKIT_TPU_OFFLOAD=always), ``host
-    C++`` (MODKIT_TPU_OFFLOAD=never: the native threshold pass,
-    ``threshold_states_cpu``) and ``host numpy`` (``use_device=False``:
-    ``modcall_counts_numpy``). Every run must write the bytes of the first
-    cuda run. Each mode runs MAIN_ROUNDS rounds of the three routes, the
-    order reversed every other round; reads/s are reported per run and as
-    the median.
+    Routes: ``cuda`` (the state kernel) and ``cpu`` (the same run on the
+    CPU device: the kernels' plain PyTorch versions). Every run must write
+    the bytes of the first cuda run. Each mode runs MAIN_ROUNDS rounds of
+    the two routes, the order reversed every other round; reads/s are
+    reported per run and as the median.
     """
-    from modkit_tpu_torch.parallel.devices import (
-        host_event_rate, link_bandwidth_bytes_per_s,
-    )
-
-    log("offload 'auto' inputs: link %.1f MB/s, host %.1f Mevent/s" % (
-        link_bandwidth_bytes_per_s("cuda") / 1e6, host_event_rate() / 1e6))
-    routes = {
-        "cuda": ("always", dict()),
-        "host C++": ("never", dict()),
-        "host numpy": ("always", dict(use_device=False)),
-    }
+    routes = ("cuda", "cpu")
     launches = None
     for mode, kw in (("no_filtering", dict(no_filtering=True)),
                      ("estimate", dict())):
         first = None
         times = {r: [] for r in routes}
         for rnd in range(MAIN_ROUNDS):
-            order = list(routes) if rnd % 2 == 0 else list(routes)[::-1]
+            order = routes if rnd % 2 == 0 else routes[::-1]
             for route in order:
-                offload, extra = routes[route]
-                out = os.path.join(
-                    work, f"{mode}.{rnd}.{route.replace(' ', '_')}.bed")
-                os.environ["MODKIT_TPU_OFFLOAD"] = offload
+                out = os.path.join(work, f"{mode}.{rnd}.{route}.bed")
                 reset_launches()
-                try:
-                    t, stats = run_path(bam, out, device="cuda", **kw, **extra)
-                finally:
-                    os.environ["MODKIT_TPU_OFFLOAD"] = "always"
+                t, stats = run_path(bam, out, device=route, **kw)
                 n_launch, n_f32, n_count = read_launches()
                 require(n_count == 0 and n_f32 == 0,
                         f"{mode}: {route} ran the f32 state or count kernel")
@@ -696,15 +661,14 @@ def phase_profile(bam: str, work: str) -> None:
 
 def phase_count_path(work: str) -> int:
     """The Python event route (native decoder off) on the card against the
-    host path; returns the count kernel's launches."""
+    native route on the CPU; returns the count kernel's launches."""
     from modkit_tpu_torch.utils.synth import make_synthetic_modbam
 
     bam = os.path.join(work, "small.bam")
     make_synthetic_modbam(bam, n_reads=2000, read_len=BENCH_READ_LEN,
                           coverage=BENCH_COVERAGE, seed=2)
-    host_out = os.path.join(work, "small.host.bed")
-    run_path(bam, host_out, device="cuda", use_device=False,
-             filter_threshold={"default": 0.6})
+    cpu_out = os.path.join(work, "small.cpu.bed")
+    run_path(bam, cpu_out, device="cpu", filter_threshold={"default": 0.6})
     os.environ["MODKIT_TPU_DISABLE_NATIVE"] = "1"
     reset_launches()
     try:
@@ -715,8 +679,8 @@ def phase_count_path(work: str) -> int:
         del os.environ["MODKIT_TPU_DISABLE_NATIVE"]
     n_state, n_f32, n_launch = read_launches()
     require(n_state == 0 and n_f32 == 0, "count path: a state kernel ran")
-    require(filecmp.cmp(dev_out, host_out, shallow=False),
-            "count path: cuda output differs from the host path")
+    require(filecmp.cmp(dev_out, cpu_out, shallow=False),
+            "count path: cuda output differs from the cpu run")
     require(n_launch > 0, "count path: the count kernel never launched")
     log(f"count path: 2000 reads, {n_launch} count launches, "
         f"{t_dev:.3f} s; byte-equal")
@@ -725,9 +689,9 @@ def phase_count_path(work: str) -> int:
 
 def phase_cram(work: str) -> int:
     """Pileup over a CRAM on the card (the Python event route: kernel B on
-    every tile), with ``use_device=False`` and through the native route of
-    the BAM it was written from; returns kernel B's launches in the
-    no-filtering cuda run."""
+    every tile), on the CPU and through the native route of the BAM it was
+    written from; returns kernel B's launches in the no-filtering cuda
+    run."""
     from modkit_tpu_torch.io.cram import CramReader
     from modkit_tpu_torch.utils.synth import make_synthetic_modbam
     from modkit_tpu_torch.utils.synth_cram import write_cram
@@ -748,7 +712,7 @@ def phase_cram(work: str) -> int:
         f"B), written in {t1 - t0:.1f} s; decoding every container "
         f"(native) to records takes {t2 - t1:.2f} s")
     routes = (("cram cuda", cram, dict(device="cuda")),
-              ("cram host", cram, dict(device="cuda", use_device=False)),
+              ("cram cpu", cram, dict(device="cpu")),
               ("bam native cuda", bam, dict(device="cuda")))
     launches = None
     for mode, kw in (("no_filtering", dict(no_filtering=True)),
@@ -777,9 +741,9 @@ def phase_cram(work: str) -> int:
                         f"{n_tiles} tiles with events")
                 if launches is None:
                     launches = n_count
-            elif route == "cram host":
+            elif route == "cram cpu":
                 require((n_state, n_f32, n_count) == (0, 0, 0),
-                        f"cram {mode}: the host route launched")
+                        f"cram {mode}: the cpu route launched")
         log(f"cram {mode}: {CRAM_READS} reads, {n_tiles} tiles, kernel B "
             f"launched {n_tiles} times on cuda, all three routes "
             f"byte-equal; reads/s: " + ", ".join(rates))
@@ -941,7 +905,7 @@ def run_steps_side_by_side(work: str, steps: dict) -> dict:
 def phase_downstream(work: str, a_bam: str, fa: str, small_bam: str,
                      card: str) -> int:
     """Phase 12: the port's tools downstream of pileup, on the card's and
-    the host's bedMethyls; returns kernel A's launches over the two cuda
+    the CPU's bedMethyls; returns kernel A's launches over the two cuda
     pileups."""
     import numpy as np
 
@@ -957,19 +921,15 @@ def phase_downstream(work: str, a_bam: str, fa: str, small_bam: str,
     log(f"downstream: sample B = adjust-mods --convert h m of A "
         f"({CRAM_READS} reads) in {t:.2f} s")
 
-    # 1. pileup of A and B on cuda and on the host, indexed
+    # 1. pileup of A and B on cuda and on the CPU, indexed
     beds, launches = {}, 0
     for sample, bam in (("a", a_bam), ("b", b_bam)):
         outs, secs = {}, {}
-        for route, offload in (("cuda", "always"), ("host", "never")):
+        for route in ("cuda", "cpu"):
             out = os.path.join(work, f"down_{sample}.{route}.bed")
-            os.environ["MODKIT_TPU_OFFLOAD"] = offload
             reset_launches()
-            try:
-                secs[route] = cli(["pileup", bam, out, "--no-filtering",
-                                   "--suppress-progress"])
-            finally:
-                os.environ["MODKIT_TPU_OFFLOAD"] = "always"
+            secs[route] = cli(["pileup", bam, out, "--no-filtering",
+                               "--suppress-progress", "--device", route])
             n_state, n_f32, n_count = read_launches()
             outs[route] = out
             if route == "cuda":
@@ -980,9 +940,9 @@ def phase_downstream(work: str, a_bam: str, fa: str, small_bam: str,
                 launches += n_state
             else:
                 require((n_state, n_f32, n_count) == (0, 0, 0),
-                        f"downstream pileup {sample}: the host route "
+                        f"downstream pileup {sample}: the cpu route "
                         "launched")
-        same_files(outs["cuda"], outs["host"], f"downstream pileup {sample}")
+        same_files(outs["cuda"], outs["cpu"], f"downstream pileup {sample}")
         t0 = time.perf_counter()
         for route, out in outs.items():
             bgzip_text(out, out + ".gz")
@@ -991,7 +951,7 @@ def phase_downstream(work: str, a_bam: str, fa: str, small_bam: str,
         log(f"downstream pileup {sample}: {count_lines(outs['cuda'])} rows, "
             f"{n_tiles} tiles, kernel A launched {n_tiles} times on cuda; "
             f"cuda {secs['cuda']:.2f} s ({CRAM_READS / secs['cuda']:.1f} "
-            f"reads/s), host {secs['host']:.2f} s; byte-equal; bgzip + "
+            f"reads/s), cpu {secs['cpu']:.2f} s; byte-equal; bgzip + "
             f"tabix of both {time.perf_counter() - t0:.2f} s")
 
     # 2-3. dmr and the bedMethyl tools on each route's bedMethyls
@@ -1006,7 +966,7 @@ def phase_downstream(work: str, a_bam: str, fa: str, small_bam: str,
         fh.write(f"synth1\t{length}\n")
     # four processes side by side: each route's dmr steps and its tools
     steps = {}
-    for route in ("cuda", "host"):
+    for route in ("cuda", "cpu"):
         dmr_steps, tool_steps = downstream_steps(work, route, beds, roi,
                                                  sizes, fa)
         steps[f"{route}.dmr"], steps[f"{route}.tools"] = dmr_steps, tool_steps
@@ -1015,7 +975,7 @@ def phase_downstream(work: str, a_bam: str, fa: str, small_bam: str,
         times.setdefault(key.split(".")[0], {}).update(t)
     for group in ("dmr", "tools"):
         for (name, _, out_c), (_, _, out_h) in zip(steps[f"cuda.{group}"],
-                                                   steps[f"host.{group}"]):
+                                                   steps[f"cpu.{group}"]):
             same_files(out_c, out_h, name)
     sites = count_lines(steps["cuda.dmr"][1][2])
     # what each dmr step scores: regions (3 pairs of samples in multi)
@@ -1026,12 +986,12 @@ def phase_downstream(work: str, a_bam: str, fa: str, small_bam: str,
         t = times["cuda"][name]
         rate = (f", {units[name][0] / t:.1f} {units[name][1]}/s"
                 if name in units else "")
-        log(f"downstream {name}: cuda bedMethyls {t:.2f} s{rate}, host "
-            f"bedMethyls {times['host'][name]:.2f} s (4 processes side by "
+        log(f"downstream {name}: cuda bedMethyls {t:.2f} s{rate}, cpu "
+            f"bedMethyls {times['cpu'][name]:.2f} s (4 processes side by "
             "side); byte-equal")
     log(f"downstream dmr pair sites: {sites} sites scored")
 
-    # 4-5. the estimates' forced sort: extract calls and pileup-hemi
+    # 4-5. extract calls and pileup-hemi, each with the default estimate
     hemi_bam = os.path.join(work, "hemi.bam")
     hemi_fa = os.path.join(work, "hemi.fa")
     make_duplex_modbam(hemi_bam, n_reads=HEMI_READS, read_len=HEMI_READ_LEN,
@@ -1044,28 +1004,15 @@ def phase_downstream(work: str, a_bam: str, fa: str, small_bam: str,
                              "-r", hemi_fa, "-i", str(HEMI_INTERVAL),
                              "--suppress-progress"],
              "hemi", HEMI_READS, "reads")):
-        outs, secs, sorts = {}, {}, {}
-        for offload in ("always", "never"):
-            outs[offload] = os.path.join(work, f"{out}.{offload}.txt")
-            os.environ["MODKIT_TPU_OFFLOAD"] = offload
-            reset_launches()
-            try:
-                secs[offload] = cli([x.format(out=outs[offload])
-                                     for x in argv])
-            finally:
-                os.environ["MODKIT_TPU_OFFLOAD"] = "always"
-            sorts[offload] = read_sorts()
-        require(sorts["always"] > 0 and sorts["never"] == 0,
-                f"{name}: sorts on the card {sorts}")
-        same_files(outs["always"], outs["never"], name)
-        rows = count_lines(outs["always"])
+        path = os.path.join(work, f"{out}.txt")
+        reset_launches()
+        secs = cli([x.format(out=path) for x in argv])
+        rows = count_lines(path)
         require(rows > 1, f"{name}: no rows")
-        rate = (rows - 1 if unit == "rows" else n_in) / secs["always"]
-        log(f"downstream {name}: {rows} lines, always {secs['always']:.2f} s "
-            f"({sorts['always']} sorts on the card, {rate:.0f} {unit}/s), "
-            f"never {secs['never']:.2f} s (no sort on the card); byte-equal")
-        for path in outs.values():
-            os.remove(path)
+        rate = (rows - 1 if unit == "rows" else n_in) / secs
+        log(f"downstream {name}: {rows} lines in {secs:.2f} s ({rate:.0f} "
+            f"{unit}/s)")
+        os.remove(path)
     log(f"downstream phase: {time.perf_counter() - t_phase:.1f} s on {card}")
     return launches
 
@@ -1091,39 +1038,23 @@ _SHARD_RANK = (
 
 def phase_entropy_and_motifs(work: str, a_bam: str, fa: str) -> str:
     """Phase 13, steps 1-2: ``entropy --cpg`` with the default estimate
-    under MODKIT_TPU_OFFLOAD=always and never, and the motif commands on
-    the card's and the host's bedMethyls of A; returns the entropy
-    bedgraph."""
+    (sorted on the host, as modkit_tpu's), and the motif commands on the
+    card's and the CPU's bedMethyls of A; returns the entropy bedgraph."""
     import contextlib
     import re
 
-    outs, secs, sorts = {}, {}, {}
-    for offload in ("always", "never"):
-        outs[offload] = os.path.join(work, f"entropy.{offload}.bedgraph")
-        os.environ["MODKIT_TPU_OFFLOAD"] = offload
-        reset_launches()
-        try:
-            secs[offload] = cli(["entropy", "-s", a_bam, "--ref", fa,
-                                 "--cpg", "-o", outs[offload], "--force",
-                                 "--suppress-progress"])
-        finally:
-            os.environ["MODKIT_TPU_OFFLOAD"] = "always"
-        sorts[offload] = read_sorts()
-        require(read_launches() == (0, 0, 0), "entropy launched a kernel")
-    # modkit_tpu's entropy estimates on the host (np.sort of the sampled
-    # confidences, engines/entropy.py), whatever the offload mode
-    require(sorts == {"always": 0, "never": 0},
-            f"entropy: sorts on the card {sorts}")
-    same_files(outs["always"], outs["never"], "entropy")
-    rows = count_lines(outs["always"])
-    log(f"entropy --cpg: {rows} windows, always {secs['always']:.2f} s "
-        f"({rows / secs['always']:.1f} windows/s), never "
-        f"{secs['never']:.2f} s ({rows / secs['never']:.1f} windows/s); no "
-        "sort on the card in either (the estimate sorts on the host, as "
-        "modkit_tpu's does); byte-equal")
+    ent_out = os.path.join(work, "entropy.bedgraph")
+    reset_launches()
+    secs = cli(["entropy", "-s", a_bam, "--ref", fa, "--cpg", "-o", ent_out,
+                "--force", "--suppress-progress"])
+    require(read_launches() == (0, 0, 0), "entropy launched a kernel")
+    rows = count_lines(ent_out)
+    require(rows > 0, "entropy: no windows")
+    log(f"entropy --cpg: {rows} windows in {secs:.2f} s "
+        f"({rows / secs:.1f} windows/s)")
 
     steps = {}
-    for route in ("cuda", "host"):
+    for route in ("cuda", "cpu"):
         bed = os.path.join(work, f"down_a.{route}.bed")
         o = os.path.join(work, f"motif.{route}")
         steps[route] = [
@@ -1137,10 +1068,10 @@ def phase_entropy_and_motifs(work: str, a_bam: str, fa: str) -> str:
              o + ".evaluate"),
         ]
     times = run_steps_side_by_side(work, steps)
-    for (name, _, out_c), (_, _, out_h) in zip(steps["cuda"], steps["host"]):
+    for (name, _, out_c), (_, _, out_h) in zip(steps["cuda"], steps["cpu"]):
         same_files(out_c, out_h, name)
-        log(f"{name}: cuda bedMethyl {times['cuda'][name]:.2f} s, host "
-            f"bedMethyl {times['host'][name]:.2f} s (2 processes side by "
+        log(f"{name}: cuda bedMethyl {times['cuda'][name]:.2f} s, cpu "
+            f"bedMethyl {times['cpu'][name]:.2f} s (2 processes side by "
             f"side), {count_lines(out_c) - 1} motifs; byte-equal")
     bed = os.path.join(work, "motif_bed.bed")
     with open(bed, "w") as fh, contextlib.redirect_stdout(fh):
@@ -1152,7 +1083,7 @@ def phase_entropy_and_motifs(work: str, a_bam: str, fa: str) -> str:
             f"motif bed: {count_lines(bed)} rows for {hits} CpGs")
     log(f"motif bed CG: {2 * hits} rows (both strands of {hits} CpGs) in "
         f"{t:.2f} s")
-    return outs["always"]
+    return ent_out
 
 
 def phase_sharded(tile, dev) -> dict:
@@ -1299,47 +1230,42 @@ def phase_collapse_and_six_codes(bam: str, work: str) -> dict:
     """Pileups of the bench modBAM with ``--ignore h`` (the f32 entry at M
     = 1: collapsed probabilities are not exact ML values) and with
     ``--combine-mods`` (its probabilities stay exact ML values, so the
-    quals entry at M = 2), with no filtering on ``cuda``, under
-    MODKIT_TPU_OFFLOAD=never and with ``use_device=False``, byte-equal per
-    mode; then a six-code modBAM on ``cuda`` and under ``never``,
-    byte-equal. Returns {"f32_m1": launches of the ``--ignore h`` cuda run,
-    "quals_m8": launches of the six-code cuda run}."""
+    quals entry at M = 2), with no filtering on ``cuda`` and on ``cpu``,
+    byte-equal per mode; then a six-code modBAM on ``cuda`` and on
+    ``cpu``, byte-equal. Returns {"f32_m1": launches of the ``--ignore h``
+    cuda run, "quals_m8": launches of the six-code cuda run}."""
     from modkit_tpu_torch.collapse import CollapseMethod
     from modkit_tpu_torch.utils.synth_codes import (
         NINE_CODES, make_multicode_modbam,
     )
 
-    routes = (("cuda", "always", dict()),
-              ("host C++", "never", dict()),
-              ("host numpy", "always", dict(use_device=False)))
-    # mode: (pileup options, index in read_launches() of the entry it runs)
+    routes = ("cuda", "cpu")
+    six = os.path.join(work, "six.bam")
+    make_multicode_modbam(six, n_reads=SIX_READS, read_len=BENCH_READ_LEN,
+                          seed=5, codes=NINE_CODES[:6])
+    # mode: (modBAM, pileup options, index in read_launches() of the entry
+    # its cuda run launches)
     modes = {
-        "ignore h": (dict(collapse=[CollapseMethod("dist", ("h",))]), 1),
-        "combine-mods": (dict(combine_mods=True), 0),
+        "ignore h": (bam, dict(collapse=[CollapseMethod("dist", ("h",))]),
+                     1),
+        "combine-mods": (bam, dict(combine_mods=True), 0),
+        "six codes": (six, dict(), 0),
     }
-
-    def run(path: str, out: str, offload: str, **kw) -> tuple:
-        os.environ["MODKIT_TPU_OFFLOAD"] = offload
-        reset_launches()
-        try:
-            t, stats = run_path(path, out, device="cuda", no_filtering=True,
-                                **kw)
-        finally:
-            os.environ["MODKIT_TPU_OFFLOAD"] = "always"
-        require(stats["rows"] > 0, f"{out}: no rows")
-        require(read_copies() == 0, f"{out}: {read_copies()} aligned copies")
-        return t, read_launches()
-
     launches = {}
-    for mode, (kw, entry) in modes.items():
-        first, secs = None, {}
-        for route, offload, extra in routes:
-            out = os.path.join(work, f"{mode.replace(' ', '_')}."
-                                     f"{route.replace(' ', '_')}.bed")
-            secs[route], got = run(bam, out, offload, **kw, **extra)
-            if first is None:
-                first = out
-                n_tiles = tiles_with_rows(out)
+    for mode, (path, kw, entry) in modes.items():
+        outs, secs = {}, {}
+        for route in routes:
+            outs[route] = os.path.join(
+                work, f"{mode.replace(' ', '_')}.{route}.bed")
+            reset_launches()
+            secs[route], stats = run_path(path, outs[route], device=route,
+                                          no_filtering=True, **kw)
+            got = read_launches()
+            require(stats["rows"] > 0, f"{mode}, {route}: no rows")
+            require(read_copies() == 0,
+                    f"{mode}, {route}: {read_copies()} aligned copies")
+            if route == "cuda":
+                n_tiles = tiles_with_rows(outs[route])
                 want = [0, 0, 0]
                 want[entry] = n_tiles
                 require(list(got) == want,
@@ -1347,32 +1273,13 @@ def phase_collapse_and_six_codes(bam: str, work: str) -> dict:
                 launches[mode] = got[entry]
             else:
                 require(got == (0, 0, 0), f"{mode}: {route} launched {got}")
-                require(filecmp.cmp(first, out, shallow=False),
-                        f"{mode}: the {route} route wrote other bytes")
-        log(f"{mode}: {n_tiles} tiles, {launches[mode]} "
+        require(filecmp.cmp(outs["cuda"], outs["cpu"], shallow=False),
+                f"{mode}: the cpu route wrote other bytes")
+        n_reads = SIX_READS if path == six else BENCH_READS
+        log(f"{mode} ({n_reads} reads): {n_tiles} tiles, {launches[mode]} "
             f"{'f32' if entry else 'quals'} state launches on cuda, "
-            "byte-equal on the three routes; reads/s "
-            + ", ".join(f"{r} {BENCH_READS / t:.0f}" for r, t in secs.items()))
-    six = os.path.join(work, "six.bam")
-    make_multicode_modbam(six, n_reads=SIX_READS, read_len=BENCH_READ_LEN,
-                          seed=5, codes=NINE_CODES[:6])
-    outs, secs = {}, {}
-    for route, offload, _ in routes[:2]:
-        outs[route] = os.path.join(work, f"six.{route.replace(' ', '_')}.bed")
-        secs[route], got = run(six, outs[route], offload)
-        if route == "cuda":
-            n_tiles = tiles_with_rows(outs[route])
-            require(got == (n_tiles, 0, 0),
-                    f"six codes: cuda launches {got}, want ({n_tiles}, 0, 0)")
-            launches["six codes"] = got[0]
-        else:
-            require(got == (0, 0, 0), f"six codes: {route} launched {got}")
-    require(filecmp.cmp(outs["cuda"], outs["host C++"], shallow=False),
-            "six codes: the host C++ route wrote other bytes")
-    log(f"six codes ({SIX_READS} reads, m_pad 8): {n_tiles} tiles, "
-        f"{launches['six codes']} quals state launches at M = 8 on cuda, "
-        "byte-equal to host C++; s "
-        + ", ".join(f"{r} {t:.3f}" for r, t in secs.items()))
+            "byte-equal on cuda and cpu; reads/s "
+            + ", ".join(f"{r} {n_reads / t:.0f}" for r, t in secs.items()))
     return dict(f32_m1=launches["ignore h"], quals_m8=launches["six codes"])
 
 
@@ -1387,37 +1294,32 @@ TOOLS = {
 }
 # phase 15: the most the card's route may hold over a pileup's bytes
 # already held (RSS after the journal pileup less RSS after the default
-# one, over the same tiles), and over the host route's peak (the CUDA
+# one, over the same tiles), and over the cpu run's peak (the CUDA
 # context, a few hundred MB)
 REPEAT_PASS_MB = 256
-OVER_HOST_ROUTE_MB = 512
+OVER_CPU_RUN_MB = 512
 # the TPU-era files the original tools overwrite; the port's never do
 TPU_RESULT_FILES = ("BENCH_SCALE_r05.json", "MULTICHIP_MODEL.json")
 
 
 def phase_cpu_baseline(bam: str, work: str) -> None:
     """Phase 15, step 1: ``cpu_baseline.run_pileup_cpu`` over the bench
-    modBAM (its estimate sorting on the host, MODKIT_TPU_OFFLOAD=never),
-    byte-equal to phase 5's first cuda bedMethyl of each mode, no kernel
-    launched."""
+    modBAM (its estimate sorting on the host), byte-equal to phase 5's
+    first cuda bedMethyl of each mode, no kernel launched."""
     from modkit_tpu_torch.cpu_baseline import run_pileup_cpu
 
     secs = {}
-    os.environ["MODKIT_TPU_OFFLOAD"] = "never"
-    try:
-        for mode, kw in (("no_filtering", {}),
-                         ("estimate", dict(no_filtering=False))):
-            out = os.path.join(work, f"cpu_baseline.{mode}.bed")
-            reset_launches()
-            t0 = time.perf_counter()
-            run_pileup_cpu(bam, out, **kw)
-            secs[mode] = time.perf_counter() - t0
-            require(read_launches() == (0, 0, 0),
-                    f"CPU baseline {mode} launched a kernel")
-            same_files(os.path.join(work, f"{mode}.0.cuda.bed"), out,
-                       f"CPU baseline {mode}")
-    finally:
-        os.environ["MODKIT_TPU_OFFLOAD"] = "always"
+    for mode, kw in (("no_filtering", {}),
+                     ("estimate", dict(no_filtering=False))):
+        out = os.path.join(work, f"cpu_baseline.{mode}.bed")
+        reset_launches()
+        t0 = time.perf_counter()
+        run_pileup_cpu(bam, out, **kw)
+        secs[mode] = time.perf_counter() - t0
+        require(read_launches() == (0, 0, 0),
+                f"CPU baseline {mode} launched a kernel")
+        same_files(os.path.join(work, f"{mode}.0.cuda.bed"), out,
+                   f"CPU baseline {mode}")
     log("CPU baseline (all C++, every core): byte-equal to the cuda route; "
         + ", ".join(f"{mode} {BENCH_READS / t:.0f} reads/s ({t:.2f} s)"
                     for mode, t in secs.items()))
@@ -1442,7 +1344,6 @@ def start_tool(name: str, work: str, *args: str):
     stdout path, stderr path, limit s)."""
     knobs, limit = TOOLS[name]
     env = dict(os.environ, TMPDIR=work, **knobs)
-    env.pop("MODKIT_TPU_OFFLOAD", None)  # each tool runs under its own modes
     tag = "_".join((name, *args)).replace("-", "")
     out, err = (os.path.join(work, f"{tag}.{x}") for x in ("out", "err"))
     with open(out, "w") as fo, open(err, "w") as fe:
@@ -1473,7 +1374,7 @@ def finish_tool(name: str, started) -> dict:
 
 def phase_tools(work: str) -> None:
     """Phase 15, step 2: the bench tool at its cut size (every identical
-    and equal field true, kernel A launched on the ``always`` runs, the
+    and equal field true, kernel A launched on its timed runs, the
     rooflines at full size), then the scale and multichip tools side by
     side (exit 0 with their JSON, every multichip output byte-equal); no
     tool writes the repository's TPU-era result files."""
@@ -1486,16 +1387,15 @@ def phase_tools(work: str) -> None:
     t_bench = time.perf_counter() - t0
     extra = got["extra"]
     require(not flags_true(got), f"bench: not true: {flags_true(got)}")
-    require(extra["forced_state_launches"] > 0,
-            "bench: kernel A not launched on the always runs")
+    require(extra["state_launches"] > 0,
+            "bench: kernel A not launched on its timed runs")
     roof = extra["kernel_roofline"]
     require(roof is not None, "bench: no kernel rooflines on the card")
     st, ct = roof["threshold_state"], roof["pileup_count_kernel"]
-    log(f"bench tool ({TOOLS['bench'][0]}): {t_bench:.1f} s; auto "
-        f"{got['value']:.1f} reads/s, route {extra['auto_route']} "
-        f"({extra['auto_state_launches']} kernel A launches), always "
-        f"{extra['device_forced_reads_per_s']:.1f} ("
-        f"{extra['forced_state_launches']} launches), CPU baseline "
+    log(f"bench tool ({TOOLS['bench'][0]}): {t_bench:.1f} s; pileup "
+        f"{got['value']:.1f} reads/s ({extra['state_launches']} kernel A "
+        f"launches), link {extra['link_bandwidth_MBps']:.1f} MB/s, CPU "
+        "baseline "
         f"{extra['cpu_baseline_reads_per_s']:.1f}; rooflines (events/s "
         f"warm / L2-cold, % of {roof['hbm_read_GBps']:.1f} GB/s): state "
         f"{st['events_per_s']:.4g} / {st['cold_events_per_s']:.4g} "
@@ -1531,9 +1431,9 @@ def phase_tools(work: str) -> None:
             f"scale_bench: the journal pileup left {again:.1f} MB more RSS "
             f"than the default one (at most {REPEAT_PASS_MB})")
     over = scale["peak_rss_mb"] - host["peak_rss_mb"]
-    require(over <= OVER_HOST_ROUTE_MB,
+    require(over <= OVER_CPU_RUN_MB,
             f"scale_bench: the cuda route's peak RSS is {over:.1f} MB over "
-            f"the host route's (at most {OVER_HOST_ROUTE_MB})")
+            f"the cpu run's (at most {OVER_CPU_RUN_MB})")
     require(mc["outputs_identical"] is True
             and set(mc["virtual_mesh_wall_s"]) == {"1", "2", "4", "8"},
             f"multichip_model: {mc}")
@@ -1574,9 +1474,9 @@ def phase_many_codes(tile, dev, work) -> dict:
     """Kernel A's f32 entry and kernel B for M in MANY_CODES against their
     plain versions at the tile's event count, timed; then a 9-code pileup
     on the card through both device routes (native decoder: kernel A's f32
-    entry; Python event route: kernel B), each byte-equal to the host C++
-    route. Returns {row name: kernels entry} at M = NINE, with the launches
-    of the 9-code run that drives the row's kernel."""
+    entry; Python event route: kernel B), each byte-equal to the same
+    route's run on ``cpu``. Returns {row name: kernels entry} at M = NINE,
+    with the launches of the 9-code run that drives the row's kernel."""
     import numpy as np
     import torch
 
@@ -1639,20 +1539,18 @@ def phase_many_codes(tile, dev, work) -> dict:
     bam = os.path.join(work, "nine.bam")
     make_multicode_modbam(bam, n_reads=2000, read_len=BENCH_READ_LEN, seed=3)
     outs, launches = {}, {}
-    for route, offload, native_off in (
-            ("cuda native", "always", False),
-            ("cuda python", "always", True),
-            ("host C++", "never", False)):
+    for route, device, native_off in (
+            ("cuda native", "cuda", False),
+            ("cuda python", "cuda", True),
+            ("cpu", "cpu", False)):
         outs[route] = os.path.join(work, f"nine.{route.replace(' ', '_')}.bed")
-        os.environ["MODKIT_TPU_OFFLOAD"] = offload
         if native_off:
             os.environ["MODKIT_TPU_DISABLE_NATIVE"] = "1"
         reset_launches()
         try:
-            t, stats = run_path(bam, outs[route], device="cuda",
+            t, stats = run_path(bam, outs[route], device=device,
                                 no_filtering=True)
         finally:
-            os.environ["MODKIT_TPU_OFFLOAD"] = "always"
             os.environ.pop("MODKIT_TPU_DISABLE_NATIVE", None)
         launches[route] = read_launches()
         require(stats["rows"] > 0, f"9 codes, {route}: no rows")
@@ -1665,8 +1563,8 @@ def phase_many_codes(tile, dev, work) -> dict:
     require(launches["cuda python"][:2] == (0, 0)
             and launches["cuda python"][2] > 0,
             f"9 codes, python route: launches {launches['cuda python']}")
-    require(launches["host C++"] == (0, 0, 0),
-            f"9 codes, host route: launches {launches['host C++']}")
+    require(launches["cpu"] == (0, 0, 0),
+            f"9 codes, cpu route: launches {launches['cpu']}")
     rows["threshold_state_f32_any_m"]["launches"] = launches["cuda native"][1]
     rows["modcall_counts_any_m"]["launches"] = launches["cuda python"][2]
     for name, row in rows.items():
@@ -1674,7 +1572,7 @@ def phase_many_codes(tile, dev, work) -> dict:
     log(f"9-code pileup: 2000 reads, rows {stats['rows']}; native route "
         f"{launches['cuda native'][1]} f32 state launches, python route "
         f"{launches['cuda python'][2]} count launches (M = 9); both "
-        "byte-equal to the host C++ route")
+        "byte-equal to the cpu route")
     return rows
 
 
@@ -1932,7 +1830,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    os.environ["MODKIT_TPU_OFFLOAD"] = "always"
     t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")

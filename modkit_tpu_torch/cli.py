@@ -9,11 +9,8 @@ run's device, ``cuda`` by default), ``summary``, ``sample-probs``,
 check-tags``/``sample-reads``, ``entropy``, ``motif search``/``refine``/
 ``evaluate``/``bed`` and ``find-motifs``: every subcommand of modkit_tpu.
 Only ``pileup`` runs its counting on the device; the others run on the
-host, as in modkit_tpu. Under MODKIT_TPU_OFFLOAD=always every threshold
-estimate that goes through ``thresholds.thresholds_from_confidences``
-sorts its confidences on the card, so a subcommand that estimates a
-threshold that way then needs one (``entropy`` sorts its estimate on the
-host, as modkit_tpu's does).
+host, as in modkit_tpu, so they need no card. Every threshold estimate,
+pileup's included, sorts its confidences on the host.
 """
 
 from __future__ import annotations

@@ -2502,46 +2502,6 @@ int32_t mk_format_rows(const int32_t* counts, int64_t p, int32_t k,
 
 void mk_free_buf(char* buf) { std::free(buf); }
 
-// One-shot host counting-rate probe for the adaptive offload policy
-// (parallel/devices.py): synthesizes n_events events with m mod classes,
-// runs the exact threshold-state + bincount hot loops, and returns the
-// measured events/second. Replaces a hardcoded host-rate guess with a
-// measurement on the deployment host.
-double mk_bench_event_rate(int64_t n_events, int32_t m) {
-  TileBuffers bufs;
-  int32_t p = 4096;
-  bufs.ev_rpos.resize(n_events);
-  bufs.ev_strand.resize(n_events);
-  bufs.ev_base.resize(n_events);
-  bufs.ev_probs.resize(n_events * m);
-  uint64_t rng = 0x9e3779b97f4a7c15ULL;
-  for (int64_t i = 0; i < n_events; ++i) {
-    rng ^= rng << 13; rng ^= rng >> 7; rng ^= rng << 17;
-    bufs.ev_rpos[i] = (int32_t)(rng % p);
-    bufs.ev_strand[i] = (int8_t)((rng >> 8) & 1);
-    bufs.ev_base[i] = (int8_t)((rng >> 16) & 3);
-    for (int32_t j = 0; j < m; ++j) {
-      bufs.ev_probs[i * m + j] =
-          (float)(((rng >> (20 + j * 5)) & 0xFF)) / 512.0f;
-    }
-  }
-  MkTileOut out{};
-  out.n_events = n_events;
-  out.m = m;
-  out.handle = &bufs;
-  std::vector<float> thr_mod(m * 4, 0.5f);
-  std::vector<float> thr_can(4, 0.5f);
-  std::vector<uint8_t> states(n_events);
-  int32_t m_pad = m;
-  std::vector<int32_t> counts((int64_t)p * 2 * (1 + 4 * (m_pad + 1)), 0);
-  auto t0 = std::chrono::steady_clock::now();
-  mk_threshold_states(&out, thr_mod.data(), thr_can.data(), states.data());
-  mk_bincount_states(&out, states.data(), m_pad, counts.data());
-  auto t1 = std::chrono::steady_clock::now();
-  double secs = std::chrono::duration<double>(t1 - t0).count();
-  return secs > 0 ? (double)n_events / secs : 1e12;
-}
-
 // -------------------------------------------------------- per-read groups
 // Native equivalent of thresholds.read_groups (mirrors reference
 // read_ids_to_base_mod_probs.rs ReadIdsToBaseModProbs::process_records):

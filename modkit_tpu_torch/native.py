@@ -20,8 +20,10 @@ the source and flags, so a stale build is never loaded. The copy differs
 in its tile decode: each read's alignment is walked as runs clipped to the
 tile and its focus, and no-calls are counted in place (``NativeTile``'s
 ``aligned_columns`` and ``walked_columns`` say how much of the old per-base
-walk is left). Set ``MODKIT_TPU_DISABLE_NATIVE=1`` to force the Python path;
-it is read on every call, so a run can switch paths within one process.
+walk is left), and it has no host counting-rate probe (the port's call and
+count run on the run's device). Set ``MODKIT_TPU_DISABLE_NATIVE=1`` to
+force the Python path; it is read on every call, so a run can switch paths
+within one process.
 """
 
 from __future__ import annotations
@@ -304,10 +306,6 @@ def load():
                 ctypes.POINTER(ctypes.c_int64),    # out_n
                 ctypes.POINTER(ctypes.c_uint8),    # status
             ]
-            lib.mk_bench_event_rate.restype = ctypes.c_double
-            lib.mk_bench_event_rate.argtypes = [
-                ctypes.c_int64, ctypes.c_int32,
-            ]
             lib.mk_bench_decode.restype = ctypes.c_double
             lib.mk_bench_decode.argtypes = [
                 ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32,
@@ -510,16 +508,6 @@ def release_pages(raw, chunks) -> None:
     lo -= lo % mmap.PAGESIZE
     if hi > lo:
         raw.madvise(mmap.MADV_DONTNEED, lo, hi - lo)
-
-
-def bench_event_rate(n_events: int = 1_000_000, m: int = 2) -> float | None:
-    """Measured host threshold+count rate (events/s) on a synthetic batch;
-    None when the native library is unavailable. Drives the adaptive
-    offload policy's host-side cost model (parallel/devices.py)."""
-    lib = load()
-    if lib is None:
-        return None
-    return float(lib.mk_bench_event_rate(n_events, m))
 
 
 def encode_code(code) -> int:

@@ -1,4 +1,8 @@
-"""Device selection and the adaptive offload policy for the port's engines.
+"""Device selection and the parallel paths of the port's engines.
+
+The device rule: the run's device does every tile's call and count, on
+``cuda`` through the kernels and on ``cpu`` through their plain PyTorch
+versions; no setting moves that work elsewhere.
 
 Single host: genome tiles dispatch round-robin across the local CUDA
 devices (the tiles axis of SURVEY §2.5 — the reference's rayon interval
@@ -16,7 +20,6 @@ rank 0 interleaves the shards back (``merge_shards``).
 from __future__ import annotations
 
 import os
-import threading
 
 import torch
 
@@ -50,100 +53,6 @@ def compute_devices(device) -> list[torch.device]:
     if cap:
         devs = devs[: max(1, int(cap))]
     return devs
-
-
-_bw_cache: dict = {}
-_bw_lock = threading.Lock()
-
-
-def link_bandwidth_bytes_per_s(device) -> float:
-    """Measured host->device bandwidth of ``device`` (one 4 MiB copy from
-    pinned memory timed with CUDA events, cached per device). A CPU device
-    has no link: infinite.
-
-    Drives the adaptive offload policy: the state call moves ~m_pad+3 B per
-    event up and 1 B back, so the offload pays only when the link moves
-    bytes faster than the host's C++ path consumes events.
-    """
-    dev = torch.device(device)
-    if dev.type == "cpu":
-        return float("inf")
-    key = str(dev)
-    with _bw_lock:
-        if key not in _bw_cache:
-            buf = torch.zeros(1 << 22, dtype=torch.uint8, pin_memory=True)
-            with torch.cuda.device(dev):
-                buf[: 1 << 14].to(dev, non_blocking=True)  # warm the path
-                start = torch.cuda.Event(enable_timing=True)
-                stop = torch.cuda.Event(enable_timing=True)
-                start.record()
-                buf.to(dev, non_blocking=True)
-                stop.record()
-                stop.synchronize()
-            dt = start.elapsed_time(stop) / 1e3
-            _bw_cache[key] = float(buf.numel()) / max(dt, 1e-9)
-        return _bw_cache[key]
-
-
-# fallback host throughput guess (events/s) when the native library (and
-# hence the measured probe) is unavailable; override with
-# MODKIT_TPU_HOST_EVENT_RATE
-_HOST_EVENT_RATE_FALLBACK = 30e6
-_host_rate_cache: float | None = None
-_policy_logged = False
-
-
-def host_event_rate() -> float:
-    """Host threshold+count throughput (events/s), self-calibrated: one
-    ~1 Mevent synthetic probe through the exact native hot loops
-    (mk_bench_event_rate), cached for the process. Env override
-    MODKIT_TPU_HOST_EVENT_RATE wins; falls back to a conservative guess
-    when the native library is unavailable."""
-    global _host_rate_cache
-    override = os.environ.get("MODKIT_TPU_HOST_EVENT_RATE")
-    if override:
-        return float(override)
-    if _host_rate_cache is None:
-        from .. import native
-
-        measured = native.bench_event_rate()
-        _host_rate_cache = (
-            measured if measured else _HOST_EVENT_RATE_FALLBACK
-        )
-    return _host_rate_cache
-
-
-def offload_events_to_device(
-    n_events: int, bytes_per_event: float, device
-) -> bool:
-    """Adaptive offload policy for transfer-bound event batches.
-
-    MODKIT_TPU_OFFLOAD=always|never|auto (default auto): in auto mode the
-    device wins when its transfer time beats 2x the host counting time
-    (the 2x credits the host cores the offload frees for BAM decode).
-    """
-    global _policy_logged
-    mode = os.environ.get("MODKIT_TPU_OFFLOAD", "auto")
-    if mode == "always":
-        return True
-    if mode == "never":
-        return False
-    host_rate = host_event_rate()
-    bw = link_bandwidth_bytes_per_s(device)
-    t_dev = n_events * (bytes_per_event + 1.0) / bw
-    t_host = n_events / host_rate
-    offload = t_dev < 2.0 * t_host
-    if not _policy_logged:
-        _policy_logged = True
-        from ..logging import get_logger
-
-        get_logger().info(
-            "offload policy: link %.1f MB/s, host %.1f Mevent/s -> "
-            "counting on %s",
-            bw / 1e6, host_rate / 1e6,
-            "device" if offload else "host",
-        )
-    return offload
 
 
 def maybe_init_distributed() -> bool:

@@ -29,9 +29,7 @@ from ..caller import ThresholdCaller
 from ..errors import ErrorTally, ModKitError
 from ..modcodes import DNA_BASES, any_mod_code, mod_code_sort_key
 from ..motifs import STRAND_BOTH
-from ..ops.counts import (
-    counts_layout, modcall_counts, modcall_counts_numpy, round_up_codes,
-)
+from ..ops.counts import counts_layout, modcall_counts, round_up_codes
 from ..ops.state import (
     threshold_state_f32, threshold_state_quals_t, thresholds_to_tensors,
 )
@@ -113,7 +111,6 @@ class PileupOptions:
     partition_tags: list | None = None
     # focus positions / motifs are handled by the caller (engine processes
     # every covered position when focus is None)
-    use_device: bool = True
     # use the native C++ tile decoder when available (None = auto)
     use_native: bool | None = None
     # native inflate/decode threads per tile (None = min(cpus, 8)); the
@@ -169,11 +166,9 @@ class TileProcessor:
         self._dev_rr = 0  # round-robin tile -> device assignment
         # guards counters when tiles launch from parallel host workers
         self._stats_lock = threading.Lock()
-        self.devices = []
-        if opts.use_device:
-            from ..parallel.devices import compute_devices
+        from ..parallel.devices import compute_devices
 
-            self.devices = compute_devices(opts.device)
+        self.devices = compute_devices(opts.device)
         # each launching thread owns one CUDA stream per device
         self._tls = threading.local()
 
@@ -257,45 +252,27 @@ class TileProcessor:
         (modkit_tpu.native), with this Python path as oracle/fallback.
         """
         focus_rule = focus.rule if focus is not None else None
-        if (
-            self._use_native()
-            and hasattr(reader, "fetch_chunks_raw")
-        ):
+        if self._use_native() and hasattr(reader, "bam_raw"):
             from .. import native
 
-            if hasattr(reader, "bam_raw"):
-                # BGZF blocks inflate inside the native thread pool with
-                # early stop past the tile end (feed-ceiling fix — the
-                # Python fetch inflated whole BAI chunks, ~2x the tile's
-                # share on WGS data)
-                chunks = reader.fetch_chunk_voffsets(tid, start, end)
-                with tracing.span("decode"):
-                    res = native.decode_tile_bgzf(
-                        reader.bam_raw,
-                        chunks,
-                        tid, start, end,
-                        max_depth=self.opts.max_depth or 0,
-                        force_allow=self.opts.force_allow,
-                        edge_filter=self.opts.edge_filter,
-                        collapse=self.opts.collapse,
-                        focus_rule=focus_rule,
-                        partition_tags=self.opts.partition_tags,
-                        n_threads=self.opts.decode_threads,
-                    )
-                    native.release_pages(reader.bam_raw, chunks)
-            else:
-                with tracing.span("decode"):
-                    res = native.decode_tile(
-                        reader.fetch_chunks_raw(tid, start, end),
-                        tid, start, end,
-                        max_depth=self.opts.max_depth or 0,
-                        force_allow=self.opts.force_allow,
-                        edge_filter=self.opts.edge_filter,
-                        collapse=self.opts.collapse,
-                        focus_rule=focus_rule,
-                        partition_tags=self.opts.partition_tags,
-                        n_threads=self.opts.decode_threads,
-                    )
+            # BGZF blocks inflate inside the native thread pool with early
+            # stop past the tile end (feed-ceiling fix — the Python fetch
+            # inflated whole BAI chunks, ~2x the tile's share on WGS data)
+            chunks = reader.fetch_chunk_voffsets(tid, start, end)
+            with tracing.span("decode"):
+                res = native.decode_tile_bgzf(
+                    reader.bam_raw,
+                    chunks,
+                    tid, start, end,
+                    max_depth=self.opts.max_depth or 0,
+                    force_allow=self.opts.force_allow,
+                    edge_filter=self.opts.edge_filter,
+                    collapse=self.opts.collapse,
+                    focus_rule=focus_rule,
+                    partition_tags=self.opts.partition_tags,
+                    n_threads=self.opts.decode_threads,
+                )
+                native.release_pages(reader.bam_raw, chunks)
             if res is not None:
                 tracing.count("reads_decoded", res.n_used + res.n_skipped)
                 tracing.count("events", res.n_events)
@@ -439,42 +416,27 @@ class TileProcessor:
                 probs = np.concatenate(probs_l, axis=0)
             tracing.count("events", len(rpos))
             thr_mod, thr_can = self.caller.threshold_arrays(vocab or ["m"])
-            offload = self.opts.use_device
-            if offload:
-                from ..parallel.devices import offload_events_to_device
-
-                offload = offload_events_to_device(
-                    len(rpos), 4.0 * probs.shape[1] + 12.0,
-                    self.devices[0],
-                )
-            if offload:
-                # probs pad to m_pad classes (-1 = absent), so the counts
-                # come back as Km(m_pad), the layout assemble_counts reads
-                m_pad = round_up_codes(m)
-                probs_p = np.pad(
-                    probs, ((0, 0), (0, m_pad - m)), constant_values=-1.0
-                ).astype(np.float32)
-                thr_mod_t, thr_can_t = thresholds_to_tensors(
-                    thr_mod[:m], thr_can, m_pad
-                )
-                dev = self._next_device()
-                with self._on_device(dev):
-                    with tracing.span("upload"):
-                        probs_d, rpos_d, strand_d, base_d = _upload(
-                            [probs_p, rpos, strand, base_idx], dev
-                        )
-                    with tracing.span("dispatch"):
-                        modc, ready = _to_host_async(
-                            modcall_counts(
-                                rpos_d, strand_d, base_d, probs_d,
-                                thr_mod_t, thr_can_t, p_total,
-                            )
-                        )
-            else:
+            # probs pad to m_pad classes (-1 = absent), so the counts come
+            # back as Km(m_pad), the layout assemble_counts reads
+            m_pad = round_up_codes(m)
+            probs_p = np.pad(
+                probs, ((0, 0), (0, m_pad - m)), constant_values=-1.0
+            ).astype(np.float32)
+            thr_mod_t, thr_can_t = thresholds_to_tensors(
+                thr_mod[:m], thr_can, m_pad
+            )
+            dev = self._next_device()
+            with self._on_device(dev):
+                with tracing.span("upload"):
+                    probs_d, rpos_d, strand_d, base_d = _upload(
+                        [probs_p, rpos, strand, base_idx], dev
+                    )
                 with tracing.span("dispatch"):
-                    modc = modcall_counts_numpy(
-                        rpos, strand, base_idx, probs, thr_mod, thr_can,
-                        p_total, m,
+                    modc, ready = _to_host_async(
+                        modcall_counts(
+                            rpos_d, strand_d, base_d, probs_d,
+                            thr_mod_t, thr_can_t, p_total,
+                        )
                     )
         else:
             modc = np.zeros((p_total, 2, 1 + 4 * (m + 1)), dtype=np.int32)
@@ -540,57 +502,28 @@ class TileProcessor:
             thr_mod_p = np.pad(thr_mod[:m], ((0, m_pad - m), (0, 0)))
             thr_mod_p = thr_mod_p.astype(np.float32)
             thr_can = thr_can.astype(np.float32)
-            offload = self.opts.use_device
-            if offload:
-                from ..parallel.devices import offload_events_to_device
-
-                # adaptive: the call is transfer-bound (~m_pad+3 B/event up,
-                # 1 B/event down); keep it host-side behind slow links
-                offload = offload_events_to_device(
-                    n, m_pad + 3, self.devices[0]
-                )
-            if offload:
-                thr_mod_t, thr_can_t = thresholds_to_tensors(
-                    thr_mod_p, thr_can, m_pad
-                )
-                dev = self._next_device()
-                with tracing.span("export"):
-                    route, q = "quals", res.export_quals_t(n, m_pad)
-                    if q is None:
-                        _, _, base_idx, probs = res.export_events(n, m_pad)
-                        route, q = "f32", (probs, base_idx.astype(np.uint8))
-                with self._on_device(dev):
-                    with tracing.span("upload"):
-                        up = _upload(list(q), dev)
-                    with tracing.span("dispatch"):
-                        if route == "quals":
-                            st = threshold_state_quals_t(
-                                *up, thr_mod_t, thr_can_t
-                            )
-                        else:
-                            st = threshold_state_f32(
-                                *up, thr_mod_t, thr_can_t
-                            )
-                        states, ready = _to_host_async(st)
-            elif self.opts.use_device:
-                # adaptive host path: same call semantics in one C++ pass
-                # (native mk_threshold_states); assemble_counts histograms
-                # the states exactly as it does device-computed ones
-                route = "host"
+            thr_mod_t, thr_can_t = thresholds_to_tensors(
+                thr_mod_p, thr_can, m_pad
+            )
+            dev = self._next_device()
+            with tracing.span("export"):
+                route, q = "quals", res.export_quals_t(n, m_pad)
+                if q is None:
+                    _, _, base_idx, probs = res.export_events(n, m_pad)
+                    route, q = "f32", (probs, base_idx.astype(np.uint8))
+            with self._on_device(dev):
+                with tracing.span("upload"):
+                    up = _upload(list(q), dev)
                 with tracing.span("dispatch"):
-                    states = res.threshold_states_cpu(
-                        thr_mod_p.astype(np.float32), thr_can
-                    )
-            else:
-                route = "host"
-                with tracing.span("export"):
-                    rpos, strand, base_idx, probs = res.export_events()
-                with tracing.span("dispatch"):
-                    modc = modcall_counts_numpy(
-                        rpos.astype(np.int64), strand.astype(np.int64),
-                        base_idx.astype(np.int64), probs, thr_mod, thr_can,
-                        p, m,
-                    )
+                    if route == "quals":
+                        st = threshold_state_quals_t(
+                            *up, thr_mod_t, thr_can_t
+                        )
+                    else:
+                        st = threshold_state_f32(
+                            *up, thr_mod_t, thr_can_t
+                        )
+                    states, ready = _to_host_async(st)
         else:
             modc = np.zeros((res._p, 2, 1 + 4 * (m_pad + 1)), dtype=np.int32)
         tracing.count("m_pad", m_pad)
@@ -621,9 +554,9 @@ class TileProcessor:
     def _histogram(self, pending: "TilePending") -> np.ndarray:
         p = pending.p
         if pending.states is not None:
-            # per-event states (device- or host-computed): one native pass
-            # histograms them straight into the full count layout,
-            # including the nocall/delete channels
+            # per-event states from kernel A (or its plain version on the
+            # CPU): one native pass histograms them straight into the full
+            # count layout, including the nocall/delete channels
             states = _host_numpy(pending.states)
             return pending.native.bincount_full(states, pending.m_pad)
         modc = _host_numpy(pending.modc)[:p]

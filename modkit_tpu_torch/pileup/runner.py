@@ -2,10 +2,8 @@
 
 Feeds genome tiles in (tid, start) order through the TileProcessor and
 writes bedMethyl rows in order. Threshold estimation (unless --no-filtering
-or a fixed --filter-threshold) samples reads and computes the filter
-percentile on the host, or with torch.sort on the run's device under
-MODKIT_TPU_OFFLOAD=always — bit-identical either way (thresholds.py
-percentile_linear_interp_device).
+or a fixed --filter-threshold) samples reads and sorts their confidences
+on the host (thresholds.py estimate_thresholds).
 
 The port of modkit_tpu/pileup/runner.py. The run's device comes from
 ``PileupConfig.device`` (default ``"cuda"``); without a CUDA device a run
@@ -69,7 +67,6 @@ class PileupConfig:
     # SAM tags partitioning output into per-key files (--partition-tag);
     # when set, `out` is a directory (writers.rs:1005)
     partition_tags: list | None = None
-    use_device: bool = True
     sampling_interval_size: int = 1_000_000
     suppress_progress: bool = False
     # motif / reference options
@@ -140,7 +137,7 @@ def run_pileup(cfg: PileupConfig) -> dict:
     ``<dir>/trace.json``: the card's activity and the run's spans and
     counters on one clock (``tracing.profiled``)."""
     profile_dir = os.environ.get("MODKIT_TPU_PROFILE")
-    if not (profile_dir and cfg.use_device):
+    if not profile_dir:
         return _run_pileup(cfg)
     from ..logging import get_logger
     from ..parallel.devices import resolve_device
@@ -162,7 +159,7 @@ def _run_pileup(cfg: PileupConfig) -> dict:
     from ..position_filter import StrandedPositionFilter
 
     from ..parallel.devices import (
-        compute_devices, maybe_init_distributed, resolve_device,
+        maybe_init_distributed, process_info, resolve_device, shard_path,
     )
 
     log = get_logger()
@@ -204,7 +201,7 @@ def _run_pileup(cfg: PileupConfig) -> dict:
             cfg.include_bed, chrom_to_tid
         )
 
-    caller = resolve_caller(cfg, reader, position_filter, device)
+    caller = resolve_caller(cfg, reader, position_filter)
 
     if cfg.partition_tags:
         for t in cfg.partition_tags:
@@ -219,7 +216,6 @@ def _run_pileup(cfg: PileupConfig) -> dict:
         edge_filter=cfg.edge_filter,
         force_allow=cfg.force_allow,
         max_depth=cfg.max_depth,
-        use_device=cfg.use_device,
         combine_strands=cfg.combine_strands,
         partition_tags=list(cfg.partition_tags) if cfg.partition_tags else None,
         device=device,
@@ -275,27 +271,23 @@ def _run_pileup(cfg: PileupConfig) -> dict:
     # genome-ordered shard, and process 0 merges after a cross-host barrier
     # (built-in replacement for the reference's manual --region sharding,
     # book/src/perf_considerations.md:3-9)
-    pidx, pcount = 0, 1
     shard_mode = False
     out_path = cfg.out
-    if cfg.use_device:
-        from ..parallel.devices import process_info, shard_path
-
-        maybe_init_distributed()
-        pidx, pcount = process_info()
-        if pcount > 1:
-            if (
-                cfg.bedgraph
-                or cfg.partition_tags
-                or cfg.journal
-                or cfg.out in ("-", "stdout")
-            ):
-                raise ValueError(
-                    "multi-host pileup requires a plain bedMethyl output "
-                    "path (no bedgraph/partition/journal)"
-                )
-            shard_mode = True
-            out_path = shard_path(cfg.out, pidx)
+    maybe_init_distributed()
+    pidx, pcount = process_info()
+    if pcount > 1:
+        if (
+            cfg.bedgraph
+            or cfg.partition_tags
+            or cfg.journal
+            or cfg.out in ("-", "stdout")
+        ):
+            raise ValueError(
+                "multi-host pileup requires a plain bedMethyl output "
+                "path (no bedgraph/partition/journal)"
+            )
+        shard_mode = True
+        out_path = shard_path(cfg.out, pidx)
 
     if cfg.bedgraph:
         writer = BedGraphWriter(
@@ -488,9 +480,7 @@ def _run_pileup(cfg: PileupConfig) -> dict:
     from collections import deque
     from concurrent.futures import ThreadPoolExecutor
 
-    n_devices = 1
-    if cfg.use_device:
-        n_devices = max(1, len(compute_devices(device)))
+    n_devices = len(proc.devices)
     # parallel launches need thread-safe tile state: the native decode path
     # qualifies; the Python event path (CRAM input / no native lib) shares
     # a per-contig read cache and stays single-launcher
@@ -628,7 +618,7 @@ def _run_pileup(cfg: PileupConfig) -> dict:
 
 
 def resolve_caller(
-    cfg: PileupConfig, reader: BamReader, position_filter=None, device=None
+    cfg: PileupConfig, reader: BamReader, position_filter=None
 ) -> ThresholdCaller:
     from ..logging import get_logger
 
@@ -669,7 +659,6 @@ def resolve_caller(
             force_allow=cfg.force_allow,
             interval_size=cfg.sampling_interval_size,
             position_filter=position_filter,
-            device=device,
         )
     for base, t in per_base.items():
         log.info(

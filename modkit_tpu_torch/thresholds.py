@@ -47,50 +47,9 @@ def percentile_linear_interp(xs: np.ndarray, q: float) -> np.float32:
     return y0 * (np.float32(1.0) - g) + y1 * g
 
 
-# torch.sort calls run on a CUDA device by the forced-device percentile
-# (counted like the kernels' launches; chip_smoke.py sets it to 0 before a
-# path and reads it after)
+# threshold sorts run on a CUDA device: none, since every estimate sorts
+# on the host (benchmark/run.py's launch counters read it)
 CUDA_SORTS = 0
-
-
-def _device_sorted(xs: np.ndarray, device):
-    """torch.sort of the confidence vector on the run's device; returns the
-    sorted values as a tensor on that device."""
-    import torch
-
-    global CUDA_SORTS
-    x = torch.from_numpy(xs.astype(np.float32)).to(device)
-    if x.is_cuda:
-        CUDA_SORTS += 1
-    return torch.sort(x).values
-
-
-def percentile_linear_interp_device(
-    xs: np.ndarray, q: float, device
-) -> np.float32:
-    """percentile_linear_interp with the sort on ``device`` (torch.sort) and
-    the two gathered endpoints interpolated host-side in f32 — bit-identical
-    to the numpy path (f32 sort is exact; same IEEE mul/add order)."""
-    n = len(xs)
-    if n < 2:
-        raise ModKitError(
-            "percentile-not-enough-datapoints",
-            f"need at least 2 data points, have {n}",
-        )
-    q = np.float32(q)
-    if q > np.float32(1.0):
-        raise ModKitError("percentile-invalid-quantile", str(q))
-    s = _device_sorted(xs, device)
-    if q == np.float32(1.0):
-        return np.float32(s[n - 1].item())
-    l = np.float32(n - 1)
-    t = l * q
-    left = int(np.floor(t))
-    right = int(np.ceil(t))
-    g = t - np.float32(np.floor(t))
-    y0 = np.float32(s[left].item())
-    y1 = np.float32(s[right].item())
-    return y0 * (np.float32(1.0) - g) + y1 * g
 
 
 class Percentiles:
@@ -518,44 +477,23 @@ def confidences_per_base(sampled: dict) -> dict[int, np.ndarray]:
 
 
 def thresholds_from_sampled(
-    sampled: dict, filter_percentile: float, device=None
+    sampled: dict, filter_percentile: float
 ) -> dict[str, float]:
     return thresholds_from_confidences(
-        confidences_per_base(sampled), filter_percentile, device
+        confidences_per_base(sampled), filter_percentile
     )
 
 
 def thresholds_from_confidences(
-    confs: dict, filter_percentile: float, device=None
+    confs: dict, filter_percentile: float
 ) -> dict[str, float]:
-    """Per-base filter percentile; host numpy sort by default, torch.sort
-    under MODKIT_TPU_OFFLOAD=always — both bit-identical. The forced sort
-    runs on ``device`` when the caller passes one, else on ``"cuda"``
-    (through ``resolve_device``: without a card it raises, as every entry
-    point of the port does; it never falls back to the host sort).
-
-    The sort is NOT routed through the adaptive counting policy: the host
-    sort of the few-Mevent confidence vector is cheap next to the
-    transfer the device sort needs, so the host keeps it unless the
-    device is forced."""
-    import os
-
-    force_device = os.environ.get("MODKIT_TPU_OFFLOAD") == "always"
-    if force_device and device is None:
-        from .parallel.devices import resolve_device
-
-        device = resolve_device("cuda")
+    """Per-base filter percentile of the confidences, sorted on the host."""
     out = {}
     for b, v in confs.items():
-        if len(v) >= 2 and force_device:
-            out[DNA_BASES[b]] = float(
-                percentile_linear_interp_device(v, filter_percentile, device)
-            )
-        else:
-            s = np.sort(v.astype(np.float32))
-            out[DNA_BASES[b]] = float(
-                percentile_linear_interp(s, filter_percentile)
-            )
+        s = np.sort(v.astype(np.float32))
+        out[DNA_BASES[b]] = float(
+            percentile_linear_interp(s, filter_percentile)
+        )
     return out
 
 
@@ -572,12 +510,9 @@ def estimate_thresholds(
     force_allow: bool = False,
     interval_size: int = 1_000_000,
     position_filter=None,
-    device=None,
 ) -> dict[str, float]:
     """Per-base thresholds = filter-percentile of sampled call confidences
-    (thresholds.rs:82 calc_thresholds_per_base). ``device`` is where the
-    forced-device percentile sorts, ``"cuda"`` when None (see
-    thresholds_from_confidences)."""
+    (thresholds.rs:82 calc_thresholds_per_base)."""
     if sample_frac is not None:
         num_reads = None
     confs = sample_reads(
@@ -585,4 +520,4 @@ def estimate_thresholds(
         collapse, edge_filter, force_allow, interval_size,
         position_filter, confidences_only=True,
     )
-    return thresholds_from_confidences(confs, filter_percentile, device)
+    return thresholds_from_confidences(confs, filter_percentile)

@@ -9,14 +9,16 @@ Port of ``bench.py``. Usage:
 the CPU raises. The workload and knobs are the original's:
 ``MODKIT_BENCH_READS`` (50 000) reads of ``MODKIT_BENCH_READ_LEN`` (5 000)
 bases at ``MODKIT_BENCH_COVERAGE`` (25x) over a 10 Mbp contig, seed 1;
-``MODKIT_BENCH_REPS`` (3) and ``MODKIT_BENCH_DEV_REPS`` (1) timed runs;
+``MODKIT_BENCH_REPS`` (3) timed runs (the original's
+``MODKIT_BENCH_DEV_REPS`` timed its forced-device runs, which the port has
+not);
 entropy, extract and dmr over ``MODKIT_BENCH_ENTROPY_READS`` (5 000) reads,
 seed 2. It times, on the run's device:
 
-- pileup with no filtering under ``MODKIT_TPU_OFFLOAD=auto`` (the
-  headline ``value``), ``always`` (``device_forced_*``) and the all-C++ CPU
-  baseline (``cpu_baseline.run_pileup_cpu``, ``vs_baseline``), and in the
-  default estimate+filter mode under ``auto`` and on the CPU baseline;
+- pileup with no filtering (the headline ``value``; the run's device does
+  every tile's call, as in every pileup) and the all-C++ CPU baseline
+  (``cpu_baseline.run_pileup_cpu``, ``vs_baseline``), and in the default
+  estimate+filter mode on both;
 - ``call-mods`` (``engines/adjust.adjust_modbam``), ``entropy`` against
   its reference-shaped scan (``MODKIT_TPU_ENTROPY_BASELINE=1``),
   ``extract full`` against writing the same bytes raw, and ``dmr pair``
@@ -25,12 +27,20 @@ seed 2. It times, on the run's device:
 Every pileup of a mode must write the bytes of the CPU baseline's, and
 entropy those of its baseline shape; a mismatch exits non-zero. Beside the
 original's fields it records the card (``nvidia-smi``'s name and power
-limit), which route ``auto`` took (kernel A's launches in the ``auto`` and
-``always`` runs: ``parallel/devices.offload_events_to_device`` keeps a
-tile on the host C++ pass when the link's time for its events passes
-twice the host's) and the warm-up run under ``always`` apart, since it
-includes the kernels' first-use ``nvcc`` build (the original waited out its
-background compiles there).
+limit), kernel A's launches in the first timed no-filtering run
+(``state_launches``) and the warm-up run apart (``device_warm_wall_s``),
+since it includes the kernels' first-use ``nvcc`` build (the original
+waited out its background compiles there). ``link_bandwidth_MBps`` is one
+4 MiB pinned copy to the card timed with CUDA events; the rooflines read it.
+
+The original's keys that the port drops, with the reason: it timed pileup
+twice, under its offload policy (``auto``) and with the device forced,
+and probed the host's counting rate for that policy; the port has one
+route, so the forced runs' wall and rate (``device_forced_*``) and the
+probe's rate in Mevents/s have no counterpart (``auto_wall_s`` is the one
+route's wall), nor have the port's own route and launch keys of the two
+runs (``auto_route``, ``auto_state_launches``,
+``forced_state_launches``); ``tests/test_torch_tools.py`` lists them all.
 
 ``kernel_roofline`` (``null`` under ``--device cpu``): at 4 194 304 events,
 M = 2, over 100 000 positions (``numpy.random.default_rng(7)``), each of
@@ -97,6 +107,25 @@ def card_line() -> str | None:
         return None
     lines = out.stdout.strip().splitlines()
     return lines[0] if lines else None
+
+
+def _link_bandwidth_bytes_per_s(dev) -> float:
+    """Host-to-device bandwidth of ``dev``: one 4 MiB copy from pinned
+    memory timed with CUDA events (infinite on the CPU: no link)."""
+    import torch
+
+    if dev.type == "cpu":
+        return float("inf")
+    buf = torch.zeros(1 << 22, dtype=torch.uint8, pin_memory=True)
+    with torch.cuda.device(dev):
+        buf[: 1 << 14].to(dev, non_blocking=True)  # warm the path
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        buf.to(dev, non_blocking=True)
+        stop.record()
+        stop.synchronize()
+    return float(buf.numel()) / max(start.elapsed_time(stop) / 1e3, 1e-9)
 
 
 def state_launches() -> int:
@@ -264,23 +293,20 @@ def _knob(name: str, default: str, kind=int):
 def run(device: str = "cuda") -> dict:
     """The benchmark on ``device``; returns the JSON line's object. Raises
     (RuntimeError) where an output differs from its baseline's. The
-    environment's MODKIT_TPU_OFFLOAD and MODKIT_TPU_ENTROPY_BASELINE are
-    restored after."""
+    environment's MODKIT_TPU_ENTROPY_BASELINE is restored after."""
     from ..parallel.devices import resolve_device
 
     dev = resolve_device(device)
-    saved = {k: os.environ.get(k) for k in (
-        "MODKIT_TPU_OFFLOAD", "MODKIT_TPU_ENTROPY_BASELINE")}
+    saved = os.environ.get("MODKIT_TPU_ENTROPY_BASELINE")
     tmp = tempfile.mkdtemp(prefix="modkit_bench_")
     try:
         return _bench(dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-        for key, val in saved.items():
-            if val is None:
-                os.environ.pop(key, None)
-            else:
-                os.environ[key] = val
+        if saved is None:
+            os.environ.pop("MODKIT_TPU_ENTROPY_BASELINE", None)
+        else:
+            os.environ["MODKIT_TPU_ENTROPY_BASELINE"] = saved
 
 
 def _bench(dev, tmp: str) -> dict:
@@ -290,7 +316,6 @@ def _bench(dev, tmp: str) -> dict:
     from ..engines.adjust import adjust_modbam
     from ..engines.dmr import SampleIndex, default_code_lookup
     from ..io.tabix import bgzip_text, build_tabix
-    from ..parallel.devices import host_event_rate, link_bandwidth_bytes_per_s
     from ..pileup.runner import PileupConfig, run_pileup
     from ..utils.synth import make_synthetic_modbam
 
@@ -299,7 +324,6 @@ def _bench(dev, tmp: str) -> dict:
     read_len = _knob("MODKIT_BENCH_READ_LEN", "5000")
     coverage = _knob("MODKIT_BENCH_COVERAGE", "25", float)
     reps = _knob("MODKIT_BENCH_REPS", "3")
-    dev_reps = _knob("MODKIT_BENCH_DEV_REPS", "1")
     ent_reads = _knob("MODKIT_BENCH_ENTROPY_READS", "5000")
 
     bam = os.path.join(tmp, "synth.bam")
@@ -308,17 +332,16 @@ def _bench(dev, tmp: str) -> dict:
         bam, n_reads=n_reads, read_len=read_len, coverage=coverage, seed=1)
     _note(f"generated {n_reads} reads in {time.perf_counter() - t0:.1f}s")
 
-    def pileup(tag, offload, **kw):
+    def pileup(tag, **kw):
         """(seconds, kernel A launches) of one run of the engine."""
-        os.environ["MODKIT_TPU_OFFLOAD"] = offload
         before = state_launches()
         t0 = time.perf_counter()
         res = run_pileup(PileupConfig(
             in_bam=bam, out=os.path.join(tmp, f"{tag}.bed"),
-            use_device=True, suppress_progress=True, device=device, **kw))
+            suppress_progress=True, device=device, **kw))
         dt = time.perf_counter() - t0
         _check(res["rows"] > 0, f"pileup {tag} wrote no rows")
-        _note(f"pileup {tag} ({offload}): {dt:.1f}s")
+        _note(f"pileup {tag}: {dt:.1f}s")
         return dt, state_launches() - before
 
     def cpu_baseline(tag, **kw):
@@ -329,25 +352,17 @@ def _bench(dev, tmp: str) -> dict:
         _note(f"cpu baseline {tag}: {dt:.1f}s")
         return dt
 
-    link_bw = link_bandwidth_bytes_per_s(dev)
-    host_rate = host_event_rate()
-    _note(f"link {link_bw / 1e6:.0f} MB/s, host {host_rate / 1e6:.0f} Meps")
+    link_bw = _link_bandwidth_bytes_per_s(dev)
+    _note(f"link {link_bw / 1e6:.0f} MB/s")
 
-    pileup("warm", "auto", no_filtering=True)
-    auto = [pileup(f"a{i}", "auto", no_filtering=True) for i in range(reps)]
-    best_auto = min(t for t, _ in auto)
-    auto_launches = auto[0][1]
+    # the first run builds the kernels (nvcc) on first use: timed apart
+    warm_wall, _ = pileup("warm", no_filtering=True)
+    timed = [pileup(f"a{i}", no_filtering=True) for i in range(reps)]
+    best = min(t for t, _ in timed)
+    launches = timed[0][1]
     # DEFAULT config: threshold estimate (10042-read sample) + filtered
     # pileup, what users get with no flags
-    est_wall = min(pileup(f"est{i}", "auto")[0] for i in range(reps))
-    # forced device: the card does every tile's call whatever the link; the
-    # first run builds the kernels (nvcc) on first use, so it is timed apart
-    dwarm_wall, _ = pileup("dwarm", "always", no_filtering=True)
-    forced = [pileup(f"d{i}", "always", no_filtering=True)
-              for i in range(dev_reps)]
-    best_forced = min(t for t, _ in forced)
-    forced_launches = forced[0][1]
-    os.environ["MODKIT_TPU_OFFLOAD"] = "auto"
+    est_wall = min(pileup(f"est{i}")[0] for i in range(reps))
     best_cpu = min(cpu_baseline(f"c{i}") for i in range(reps))
     best_cpu_default = min(cpu_baseline(f"cd{i}", no_filtering=False)
                            for i in range(reps))
@@ -451,35 +466,26 @@ def _bench(dev, tmp: str) -> dict:
     def bed(tag):
         return os.path.join(tmp, f"{tag}.bed")
 
-    _check(_same(bed("a0"), bed("c0")), "auto engine != CPU baseline output")
-    _check(_same(bed("d0"), bed("c0")), "forced-device engine != CPU baseline")
+    _check(_same(bed("a0"), bed("c0")), "engine != CPU baseline output")
     _check(_same(bed("est0"), bed("cd0")),
            "default engine != CPU baseline default")
 
     roofline = kernel_rooflines(link_bw) if dev.type == "cuda" else None
-    if dev.type == "cpu":
-        auto_route = "cpu (the kernels' plain versions)"
-    elif auto_launches:
-        auto_route = "cuda (kernel A)"
-    else:
-        auto_route = "host C++ (no kernel A launch)"
     return {
         "metric": "pileup_reads_per_s",
-        "value": n_reads / best_auto,
+        "value": n_reads / best,
         "unit": f"reads/s ({read_len}b reads, {coverage:g}x, 2 mod codes)",
-        "vs_baseline": best_cpu / best_auto,
+        "vs_baseline": best_cpu / best,
         "extra": {
             "baseline": "all-C++ multithreaded CPU pileup "
                         "(modkit_tpu_torch.cpu_baseline)",
             "device": device,
             "card": card_line() if dev.type == "cuda" else None,
-            "auto_route": auto_route,
-            "auto_state_launches": auto_launches,
-            "forced_state_launches": forced_launches,
-            "device_warm_wall_s": dwarm_wall,
+            "state_launches": launches,
+            "device_warm_wall_s": warm_wall,
             "cpu_baseline_reads_per_s": n_reads / best_cpu,
-            "positions_per_s": stats["contig_len"] / best_auto,
-            "auto_wall_s": best_auto,
+            "positions_per_s": stats["contig_len"] / best,
+            "auto_wall_s": best,
             "default_filtered_wall_s": est_wall,
             "default_filtered_reads_per_s": n_reads / est_wall,
             "vs_baseline_default": best_cpu_default / est_wall,
@@ -499,8 +505,6 @@ def _bench(dev, tmp: str) -> dict:
             "vs_baseline_entropy": entropy_base / best_entropy,
             "entropy_baseline_wall_s": entropy_base,
             "entropy_outputs_identical": ent_eq,
-            "device_forced_wall_s": best_forced,
-            "device_forced_reads_per_s": n_reads / best_forced,
             "cpu_wall_s": best_cpu,
             "n_reads": n_reads,
             "contig_len": stats["contig_len"],
@@ -508,7 +512,6 @@ def _bench(dev, tmp: str) -> dict:
             # a CPU run has no link (its bandwidth is infinite)
             "link_bandwidth_MBps": (link_bw / 1e6 if math.isfinite(link_bw)
                                     else None),
-            "host_event_rate_Meps": host_rate / 1e6,
             "kernel_roofline": roofline,
             "outputs_identical": True,
         },

@@ -8,13 +8,14 @@ Port of ``tools/multichip_model.py``. Usage:
 ``cuda`` is the default; without a CUDA device a run that did not ask for
 the CPU raises. Over ``MC_READS`` (20 000) reads of 5 kb at 25x, seed 4:
 
-1. HOST FEED CURVE: ``TileProcessor.launch_tile`` (tile fetch + native
-   decode, no counting) over every 100 kb tile at 1 and 2 workers, each
-   with ``cores // workers`` decode threads. Pileup is parallel over tiles
+1. HOST FEED CURVE: ``native.decode_tile_bgzf`` over each 100 kb tile's
+   BGZF chunks (tile fetch + native decode, as ``TileProcessor.launch_tile``
+   runs them, no counting) at 1 and 2 workers, each with
+   ``cores // workers`` decode threads. Pileup is parallel over tiles
    with no exchange between devices, so how many devices one host's feed
    keeps busy sets the scaling.
-2. DEVICE-COUNT CURVE: the pileup (no filtering, MODKIT_TPU_OFFLOAD=always:
-   kernel A on every tile) with ``parallel/devices.compute_devices`` giving
+2. DEVICE-COUNT CURVE: the pileup (no filtering: kernel A on every tile on
+   ``cuda``) with ``parallel/devices.compute_devices`` giving
    N in {1, 2, 4, 8} devices; tiles round-robin over them. The original
    made N virtual XLA host devices; here the N entries are the cards
    ``cuda:0 .. cuda:N-1`` where there are that many and ``cuda:0`` again
@@ -41,28 +42,32 @@ from concurrent.futures import ThreadPoolExecutor
 DEVICE_COUNTS = (1, 2, 4, 8)
 
 
-def feed_curve(bam: str, n_reads: int, device) -> dict:
-    """Tile-launch feed rate (BGZF fetch + native decode, no counting) at
-    1 and 2 workers; per-worker native threads = cores // workers."""
-    from ..caller import ThresholdCaller
+def feed_curve(bam: str, n_reads: int) -> dict:
+    """Tile feed rate (BGZF fetch + native decode, no counting) at 1 and 2
+    workers; per-worker native threads = cores // workers."""
+    from .. import native
     from ..io.bam import BamReader
-    from ..pileup.engine import PileupOptions, TileProcessor
+    from ..pileup.engine import PileupOptions
 
     length = BamReader(bam).header.refs[0].length
     tiles = [(0, s, min(s + 100_000, length))
              for s in range(0, length, 100_000)]
     cores = os.cpu_count() or 1
+    max_depth = PileupOptions().max_depth
     out = {}
     for workers in (1, 2):
         threads = max(1, cores // workers)
-        opts = PileupOptions(use_device=False, decode_threads=threads,
-                             device=device)
-        proc = TileProcessor(ThresholdCaller.passthrough(), opts)
         readers = [BamReader(bam) for _ in range(workers)]
 
         def launch(args):
             w, (tid, s, e) = args
-            return proc.launch_tile(readers[w], tid, s, e, None)
+            reader = readers[w]
+            chunks = reader.fetch_chunk_voffsets(tid, s, e)
+            tile = native.decode_tile_bgzf(reader.bam_raw, chunks, tid, s, e,
+                                           max_depth=max_depth,
+                                           n_threads=threads)
+            native.release_pages(reader.bam_raw, chunks)
+            return tile
 
         jobs = [(i % workers, t) for i, t in enumerate(tiles)]
         t0 = time.perf_counter()
@@ -98,9 +103,7 @@ def device_count_curve(bam: str, tmp: str, dev) -> tuple[dict, dict]:
 
     lists = device_lists(dev)
     real = devices.compute_devices
-    saved = os.environ.get("MODKIT_TPU_OFFLOAD")
     walls, outs = {}, {}
-    os.environ["MODKIT_TPU_OFFLOAD"] = "always"
     try:
         for n, devs in lists.items():
             devices.compute_devices = lambda device, devs=devs: list(devs)
@@ -116,10 +119,6 @@ def device_count_curve(bam: str, tmp: str, dev) -> tuple[dict, dict]:
                   file=sys.stderr)
     finally:
         devices.compute_devices = real
-        if saved is None:
-            os.environ.pop("MODKIT_TPU_OFFLOAD", None)
-        else:
-            os.environ["MODKIT_TPU_OFFLOAD"] = saved
     with open(outs[1], "rb") as fh:
         first = fh.read()
     for n, path in outs.items():
@@ -143,7 +142,7 @@ def run(device: str = "cuda") -> dict:
         bam = os.path.join(tmp, "mc_synth.bam")
         make_synthetic_modbam(bam, n_reads=n_reads, read_len=5000,
                               coverage=25.0, seed=4)
-        feed = feed_curve(bam, n_reads, dev)
+        feed = feed_curve(bam, n_reads)
         walls, lists = device_count_curve(bam, tmp, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -180,7 +180,7 @@ def run(device: str = "cuda") -> dict:
             t0 = time.perf_counter()
             res = run_pileup(PileupConfig(
                 in_bam=bam, out=os.path.join(tmp, f"{tag}.bed"),
-                use_device=True, suppress_progress=True, device=str(dev),
+                suppress_progress=True, device=str(dev),
                 **kw))
             dt = time.perf_counter() - t0
             peaks.phase(None)

@@ -27,7 +27,7 @@ the rest on the thread that writes):
 - ``upload``: the pinned staging buffer, its packing and the enqueue of
   the host-to-device copy;
 - ``dispatch``: kernel A's call and the enqueue of the states' copy back
-  (on the host route the host's threshold pass);
+  (on the Python event route kernel B's);
 - ``device_wait``: the wait for the states' copy to land;
 - ``histogram``: the states into the tile's count tensor;
 - ``format``: the counts into rows;
@@ -82,7 +82,7 @@ COUNTERS = ("reads_decoded", "events", "m_pad", "route", "bytes_up",
             "bytes_down", "rows", "out_bytes", "format_route",
             "focus_positions", "tile_extend_bp", "aligned_columns",
             "walked_columns")
-ROUTES = ("none", "quals", "f32", "host")
+ROUTES = ("none", "quals", "f32")
 FORMAT_ROUTES = ("none", "text", "columnar", "columnar_motif", "rows")
 # the stages that launch a tile and those that finish it, both on a tile
 # worker unless the writer's thread finishes tiles

@@ -70,16 +70,18 @@ PORTS = {
                           "barrier (sync_processes), not jax's",
     "engines/extract.py": "the shard barrier is a torch.distributed "
                           "barrier (sync_processes), not jax's",
-    "thresholds.py": "the forced-device percentile sorts with torch.sort "
-                     "on the run's device instead of a jitted jnp.sort; "
-                     "the native sample drops its blocks' pages from the "
-                     "reader's map",
+    "thresholds.py": "every estimate's percentile sorts on the host, "
+                     "whatever MODKIT_TPU_OFFLOAD says (no jitted "
+                     "jnp.sort under always); the native sample drops its "
+                     "blocks' pages from the reader's map",
     "ops/__init__.py": "the docstring names the CUDA kernels",
     "parallel/__init__.py": "the docstring: devices, a grid of torch "
                             "devices and a process group, not a jax Mesh",
-    "parallel/devices.py": "torch devices, the device rule; a gloo "
-                           "torch.distributed process group for multi-host "
-                           "runs (maybe_init_distributed, process_info, "
+    "parallel/devices.py": "torch devices, the device rule and no offload "
+                           "policy (the run's device does every tile's "
+                           "call and count); a gloo torch.distributed "
+                           "process group for multi-host runs "
+                           "(maybe_init_distributed, process_info, "
                            "sync_processes) instead of jax.distributed",
     "parallel/sharded_pileup.py": "a [tiles, readers] grid of torch devices "
                                   "driven by one process instead of a jax "
@@ -87,13 +89,16 @@ PORTS = {
                                   "is an int32 sum on the tile's first "
                                   "device",
     "pileup/engine.py": "the kernels' wrappers, CUDA streams and pinned "
-                        "copies instead of jitted calls; a decoded tile's "
-                        "blocks leave the reader's map; with a focus or "
-                        "combined strands, bedMethyl rows decode "
-                        "column-wise over the focus positions only",
-    "pileup/runner.py": "the run's device, torch.profiler; the shard "
-                        "barrier is sync_processes, not jax's; the tile "
-                        "workers share the run's reader",
+                        "copies instead of jitted calls; one count route "
+                        "per tile kind, on the run's device (no "
+                        "use_device, no host threshold or numpy count); a "
+                        "decoded tile's blocks leave the reader's map; "
+                        "with a focus or combined strands, bedMethyl rows "
+                        "decode column-wise over the focus positions only",
+    "pileup/runner.py": "the run's device (no use_device), "
+                        "torch.profiler; the shard barrier is "
+                        "sync_processes, not jax's; the tile workers share "
+                        "the run's reader",
     "writers.py": "BedMethylWriter.write_columnar renders the motif "
                   "route's columns too: motif labels and strand '.'",
 }
@@ -108,7 +113,9 @@ NATIVE_PORTS = {
         "CIGAR runs clipped to the tile and its focus, counts no-calls and "
         "deletions straight into per-thread tile histograms, and reports "
         "aligned_columns and walked_columns; its output equals the "
-        "original's (tests/test_torch_decode_walk.py)",
+        "original's (tests/test_torch_decode_walk.py); it has no "
+        "mk_bench_event_rate, the host counting-rate probe of the offload "
+        "policy the port does not have",
     ),
 }
 

@@ -196,7 +196,6 @@ def engine_events(tmp_path_factory):
 
     mp = pytest.MonkeyPatch()
     mp.setattr(port_engine, "modcall_counts", spy)
-    mp.setenv("MODKIT_TPU_OFFLOAD", "always")
     mp.setenv("MODKIT_TPU_DISABLE_NATIVE", "1")
     try:
         run_pileup(PileupConfig(in_bam=bam, out=str(work / "out.bed"),

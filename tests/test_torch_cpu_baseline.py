@@ -44,6 +44,7 @@ def _read(path):
 def test_cpu_baseline_equals_modkit_tpu_and_the_engine(bam, tmp_path,
                                                        monkeypatch, mode,
                                                        threads):
+    # modkit_tpu's side keeps its default policy; the port reads nothing
     monkeypatch.setenv("MODKIT_TPU_OFFLOAD", "auto")
     no_filtering = mode == "no-filtering"
     port = str(tmp_path / "port.bed")

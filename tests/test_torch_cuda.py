@@ -6,7 +6,7 @@ its alignment rules: the quals entry refuses a misaligned input, the f32
 entry copies one) and kernel B
 (counts, any M; every cell written, out-of-range events dropped), with a
 9-code and a collapsed (``--ignore h``) pileup on the card against the
-host route; a CRAM pileup on the card
+same pileup on the CPU; a CRAM pileup on the card
 (kernel B on every tile) against the CPU run, and ``run_pileup_counts``,
 ``pileup_count_kernel`` and the sharded count on the card against the CPU
 (each launch of kernel A's f32 entry counted); a pileup over ``cuda:0``
@@ -285,12 +285,11 @@ def test_bench_rooflines_equal_plain_and_beat_it(cuda_device):
 
 
 @pytest.mark.cuda
-def test_collapse_pileup_on_cuda_equals_the_host_route(cuda_device, tmp_path,
-                                                       monkeypatch):
+def test_collapse_pileup_on_cuda_equals_the_host_route(cuda_device, tmp_path):
     """``--ignore h`` leaves one code whose probabilities are not exact ML
     values: on the card every tile with events launches kernel A's f32
     entry at M = 1 once and its quals entry never, and the bedMethyl is the
-    host C++ route's."""
+    CPU run's (the kernels' plain versions, on the host)."""
     import filecmp
 
     from modkit_tpu_torch.collapse import CollapseMethod
@@ -301,14 +300,13 @@ def test_collapse_pileup_on_cuda_equals_the_host_route(cuda_device, tmp_path,
     make_synthetic_modbam(bam, n_reads=600, read_len=2000, coverage=20.0,
                           seed=7)
     outs = {}
-    for route, offload in (("cuda", "always"), ("host", "never")):
-        monkeypatch.setenv("MODKIT_TPU_OFFLOAD", offload)
+    for route in ("cuda", "cpu"):
         outs[route] = str(tmp_path / f"{route}.bed")
         before = (state.STATE_KERNEL_LAUNCHES,
                   state.STATE_F32_KERNEL_LAUNCHES)
         run_pileup(PileupConfig(
             in_bam=bam, out=outs[route], interval_size=5_000,
-            no_filtering=True, suppress_progress=True, device="cuda",
+            no_filtering=True, suppress_progress=True, device=route,
             collapse=[CollapseMethod("dist", ("h",))]))
         launched = (state.STATE_KERNEL_LAUNCHES - before[0],
                     state.STATE_F32_KERNEL_LAUNCHES - before[1])
@@ -318,12 +316,11 @@ def test_collapse_pileup_on_cuda_equals_the_host_route(cuda_device, tmp_path,
             assert launched == (0, len(tiles)) and len(tiles) > 4
         else:
             assert launched == (0, 0)
-    assert filecmp.cmp(outs["cuda"], outs["host"], shallow=False)
+    assert filecmp.cmp(outs["cuda"], outs["cpu"], shallow=False)
 
 
 @pytest.mark.cuda
-def test_pinned_staging_stays_flat_over_200_tiles(cuda_device, tmp_path,
-                                                 monkeypatch):
+def test_pinned_staging_stays_flat_over_200_tiles(cuda_device, tmp_path):
     """200 tiles through the engine on the card, six in flight as the
     runner keeps them: after the first tiles PyTorch's caching host
     allocator makes almost no new pinned block (each tile's staging reuses
@@ -336,7 +333,6 @@ def test_pinned_staging_stays_flat_over_200_tiles(cuda_device, tmp_path,
     from modkit_tpu_torch.pileup.engine import PileupOptions, TileProcessor
     from modkit_tpu_torch.utils.synth import make_synthetic_modbam
 
-    monkeypatch.setenv("MODKIT_TPU_OFFLOAD", "always")
     bam = str(tmp_path / "s.bam")
     contig = make_synthetic_modbam(bam, n_reads=4000, read_len=2000,
                                    coverage=20.0, seed=9)["contig_len"]
@@ -361,25 +357,28 @@ def test_pinned_staging_stays_flat_over_200_tiles(cuda_device, tmp_path,
 
 
 @pytest.mark.cuda
-def test_two_pass_pileup_on_cuda_equals_offload_never(cuda_device, tmp_path,
-                                                      monkeypatch):
+def test_two_pass_pileup_on_cuda_equals_offload_never(cuda_device, tmp_path):
     """The scale tool's two passes (the default estimate, then with a
-    journal) on the card in one process, each byte-equal to the host C++
-    route (MODKIT_TPU_OFFLOAD=never), kernel A once per tile each time."""
+    journal) on the card in one process, each byte-equal
+    to the all-C++ CPU baseline (``cpu_baseline.run_pileup_cpu``, its
+    estimate sorted on the host too) and to the same pileup on the CPU
+    device, kernel A once per tile each time."""
     import filecmp
 
+    from modkit_tpu_torch.cpu_baseline import run_pileup_cpu
     from modkit_tpu_torch.pileup.runner import PileupConfig, run_pileup
     from modkit_tpu_torch.utils.synth import make_synthetic_modbam
 
     bam = str(tmp_path / "s.bam")
     make_synthetic_modbam(bam, n_reads=2000, read_len=2000, coverage=20.0,
                           seed=10)
-    monkeypatch.setenv("MODKIT_TPU_OFFLOAD", "never")
     host = str(tmp_path / "host.bed")
-    run_pileup(PileupConfig(in_bam=bam, out=host, interval_size=10_000,
-                            suppress_progress=True, device="cuda"))
+    run_pileup_cpu(bam, host, interval_size=10_000, no_filtering=False)
+    on_cpu = str(tmp_path / "cpu.bed")
+    run_pileup(PileupConfig(in_bam=bam, out=on_cpu, interval_size=10_000,
+                            suppress_progress=True, device="cpu"))
+    assert filecmp.cmp(on_cpu, host, shallow=False)
     tiles = {int(line.split("\t", 2)[1]) // 10_000 for line in open(host)}
-    monkeypatch.setenv("MODKIT_TPU_OFFLOAD", "always")
     for tag, kw in (("default", {}),
                     ("journal", dict(journal=str(tmp_path / "j.jsonl")))):
         out = str(tmp_path / f"{tag}.bed")
@@ -555,8 +554,7 @@ def test_any_m_entries_refuse_more_classes_than_a_state_byte(cuda_device):
 
 @pytest.mark.cuda
 def test_nine_code_pileup_on_cuda_equals_the_host_route(cuda_device,
-                                                        tmp_path,
-                                                        monkeypatch):
+                                                        tmp_path):
     import filecmp
 
     from modkit_tpu_torch.pileup.runner import PileupConfig, run_pileup
@@ -565,24 +563,22 @@ def test_nine_code_pileup_on_cuda_equals_the_host_route(cuda_device,
     bam = str(tmp_path / "nine.bam")
     make_multicode_modbam(bam, n_reads=300, read_len=2000, seed=3)
     outs = {}
-    for route, offload in (("cuda", "always"), ("host", "never")):
-        monkeypatch.setenv("MODKIT_TPU_OFFLOAD", offload)
+    for route in ("cuda", "cpu"):
         before = state.STATE_F32_KERNEL_LAUNCHES
         outs[route] = str(tmp_path / f"{route}.bed")
         run_pileup(PileupConfig(in_bam=bam, out=outs[route],
                                 no_filtering=True, suppress_progress=True,
-                                device="cuda"))
+                                device=route))
         launched = state.STATE_F32_KERNEL_LAUNCHES - before
         assert (launched > 0) == (route == "cuda")
-    assert filecmp.cmp(outs["cuda"], outs["host"], shallow=False)
+    assert filecmp.cmp(outs["cuda"], outs["cpu"], shallow=False)
 
 
 # ---- CRAM input (kernel B on the Python event route) ----
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["no-filtering", "estimate"])
-def test_cram_pileup_on_cuda_equals_the_cpu(cuda_device, tmp_path,
-                                            monkeypatch, mode):
+def test_cram_pileup_on_cuda_equals_the_cpu(cuda_device, tmp_path, mode):
     """A CRAM runs serially on the Python event route: on the card every
     tile with events launches kernel B once, kernel A never, and the
     bedMethyl is the CPU run's."""
@@ -597,7 +593,6 @@ def test_cram_pileup_on_cuda_equals_the_cpu(cuda_device, tmp_path,
     make_synthetic_modbam(bam, n_reads=400, read_len=2000, coverage=20.0,
                           seed=5, fasta_out=fa)
     write_cram(bam, fa, cram, records_per_container=100)
-    monkeypatch.setenv("MODKIT_TPU_OFFLOAD", "always")
     kw = dict(no_filtering=True) if mode == "no-filtering" else {}
     outs = {}
     for device in ("cuda", "cpu"):
@@ -1201,7 +1196,6 @@ def test_pileup_at_1_and_4_entries_of_one_card(cuda_device, tmp_path,
     bam = str(tmp_path / "s.bam")
     make_synthetic_modbam(bam, n_reads=600, read_len=2000, coverage=20.0,
                           seed=6)
-    monkeypatch.setenv("MODKIT_TPU_OFFLOAD", "always")
     outs = {}
     for n in (1, 4):
         monkeypatch.setattr(devices, "compute_devices",
@@ -1327,7 +1321,6 @@ def test_a_tiles_kernel_lies_between_its_dispatch_and_device_wait(
     bam = str(tmp_path / "s.bam")
     contig = make_synthetic_modbam(bam, n_reads=600, read_len=2000,
                                    coverage=20.0, seed=11)["contig_len"]
-    monkeypatch.setenv("MODKIT_TPU_OFFLOAD", "always")
     monkeypatch.setenv("MODKIT_TPU_PROFILE", str(tmp_path / "prof"))
     run_pileup(PileupConfig(in_bam=bam, out=str(tmp_path / "a.bed"),
                             interval_size=contig, no_filtering=True,

@@ -8,9 +8,9 @@ unit tests, then the CLI on a synthesized modBAM and its FASTA
 outputs), stranded and combined motifs, ``--no-filtering`` and the
 default estimate, ``-t 1`` against ``-t 4``, and one window per batch
 (``MODKIT_TPU_ENTROPY_BATCH_SPAN=1``) against the default batches. One
-run goes with ``jax`` and ``modkit_tpu`` blocked. Under
-MODKIT_TPU_OFFLOAD=always the estimate runs on this card-less machine
-too: entropy sorts it on the host, as modkit_tpu's does.
+run goes with ``jax`` and ``modkit_tpu`` blocked. Entropy sorts its
+estimate on the host, as modkit_tpu's does; MODKIT_TPU_OFFLOAD=always
+(read by modkit_tpu only) changes neither side's bytes.
 """
 
 import filecmp
@@ -120,8 +120,9 @@ def test_entropy_regions_equals_modkit_tpu(tmp_path, sample):
 ])
 def test_entropy_modes_equal_the_default(tmp_path, sample, monkeypatch, env,
                                          value):
-    """The port's ``-t 4`` default run against one window per batch and a
-    forced offload, each also against modkit_tpu's run in that mode."""
+    """The port's ``-t 4`` default run against one window per batch and
+    against modkit_tpu's forced offload (MODKIT_TPU_OFFLOAD, which only
+    modkit_tpu reads), each also against modkit_tpu's run in that mode."""
     default = _entropy(port_main, sample, str(tmp_path / "d.bg"),
                        MODES["estimate"])
     monkeypatch.setenv(env, value)

@@ -19,6 +19,9 @@ import threading
 import numpy as np
 import pytest
 
+from modkit_tpu.caller import ThresholdCaller as RefCaller
+from modkit_tpu.pileup.engine import PileupOptions as RefOptions
+from modkit_tpu.pileup.engine import TileProcessor as RefProcessor
 from modkit_tpu_torch import native
 from modkit_tpu_torch.caller import ThresholdCaller
 from modkit_tpu_torch.io.bam import BamReader
@@ -42,11 +45,6 @@ def bam(tmp_path_factory):
     stats = make_synthetic_modbam(path, n_reads=3000, read_len=2000,
                                   coverage=20.0, seed=17)
     return path, stats["contig_len"], os.path.getsize(path) // 1024
-
-
-@pytest.fixture(autouse=True)
-def offload_auto(monkeypatch):
-    monkeypatch.delenv("MODKIT_TPU_OFFLOAD", raising=False)
 
 
 def spans(contig_len):
@@ -102,10 +100,13 @@ def test_a_decoded_tile_leaves_its_reader(bam):
         for s, e in spans(contig_len)]
     assert mapped_kb(path) > size_kb * 3 // 4
     del tiles, kept
-    host = TileProcessor(ThresholdCaller.passthrough(),
-                         PileupOptions(device="cpu", use_device=False))
-    assert got == [host.finish_tile(host.launch_tile(reader, 0, s, e),
-                                    chrom="synth1").text
+    # the released pages read back: modkit_tpu's engine on its host route
+    # (native decode, numpy count) over the same reader's map gives the
+    # same rows
+    ref = RefProcessor(RefCaller.passthrough(),
+                       RefOptions(use_device=False))
+    assert got == [ref.finish_tile(ref.launch_tile(reader, 0, s, e),
+                                   chrom="synth1").text
                    for s, e in spans(contig_len)]
 
 

@@ -73,6 +73,7 @@ def test_engine_sends_nine_classes_through_the_f32_entry(tmp_path, bam,
         return fn(probs, *a, **kw)
 
     monkeypatch.setattr(port_engine, "threshold_state_f32", spy)
+    # modkit_tpu's side takes its device route; the port has only one
     monkeypatch.setenv("MODKIT_TPU_OFFLOAD", "always")
     ref_out, port_out = str(tmp_path / "ref.bed"), str(tmp_path / "port.bed")
     ref_run(RefConfig(in_bam=bam, out=ref_out, no_filtering=True,
@@ -96,6 +97,7 @@ def test_python_event_route_sends_nine_classes_through_the_count_entry(
         return fn(rpos, strand, base, probs, *a, **kw)
 
     monkeypatch.setattr(port_engine, "modcall_counts", spy)
+    # modkit_tpu's side takes its device route; the port has only one
     monkeypatch.setenv("MODKIT_TPU_OFFLOAD", "always")
     monkeypatch.setenv("MODKIT_TPU_DISABLE_NATIVE", "1")
     ref_out, port_out = str(tmp_path / "ref.bed"), str(tmp_path / "port.bed")

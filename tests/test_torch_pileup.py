@@ -11,6 +11,7 @@ other half of the matrix are in test_torch_pileup_modes.py.
 import filecmp
 import os
 
+import numpy as np
 import pytest
 
 import modkit_tpu.collapse as jax_collapse
@@ -18,6 +19,7 @@ import modkit_tpu_torch.collapse as port_collapse
 from modkit_tpu.pileup.runner import PileupConfig as RefConfig
 from modkit_tpu.pileup.runner import run_pileup as ref_run
 from modkit_tpu.utils.synth import make_synthetic_modbam
+from modkit_tpu_torch import thresholds as port_thresholds
 from modkit_tpu_torch.pileup import engine as port_engine
 from modkit_tpu_torch.pileup.runner import PileupConfig, run_pileup
 from modkit_tpu_torch.utils.synth import (
@@ -107,11 +109,22 @@ def test_estimated_thresholds(tmp_path, synth, op_calls):
 
 
 def test_estimated_thresholds_device_sort(tmp_path, synth, monkeypatch):
-    """MODKIT_TPU_OFFLOAD=always sorts the confidences on the run's device
-    in both packages (jnp.sort / torch.sort)."""
-    monkeypatch.setenv("MODKIT_TPU_OFFLOAD", "always")
+    """Under MODKIT_TPU_OFFLOAD=always modkit_tpu sorts the confidences on
+    its device (jnp.sort); the port, which reads no such variable, sorts
+    them on the host and writes the same bedMethyl."""
+    monkeypatch.setenv("MODKIT_TPU_OFFLOAD", "always")  # modkit_tpu's side
+    sorted_n = []
+    interp = port_thresholds.percentile_linear_interp
+
+    def spy(xs, q):
+        assert isinstance(xs, np.ndarray)
+        sorted_n.append(len(xs))
+        return interp(xs, q)
+
+    monkeypatch.setattr(port_thresholds, "percentile_linear_interp", spy)
     kw = dict(num_reads=200, seed=5)
     run_both(tmp_path, synth[0], kw, kw)
+    assert sorted_n and all(n >= 2 for n in sorted_n)
 
 
 def test_mod_thresholds(tmp_path, synth, op_calls):

@@ -117,10 +117,12 @@ def test_python_event_route_takes_the_count_path(
     assert set(op_calls) == {"modcall_counts"}
 
 
-def test_host_path_use_device_false(tmp_path, synth, op_calls):
-    kw = dict(filter_threshold={"default": 0.6}, use_device=False)
-    run_both(tmp_path, synth[0], kw, kw)
-    assert not op_calls
+def test_port_equals_modkit_tpu_host_numpy_route(tmp_path, synth, op_calls):
+    """modkit_tpu's host numpy route (its ``use_device=False``) against the
+    port's one route: kernel A's quals entry, through its plain version."""
+    kw = dict(filter_threshold={"default": 0.6})
+    run_both(tmp_path, synth[0], dict(kw, use_device=False), kw)
+    assert set(op_calls) == {"threshold_state_quals_t"}
 
 
 def test_engine_use_native_false_option(synth):

@@ -1,13 +1,10 @@
-"""The forced-device percentile sort of every threshold estimate.
+"""The percentile sort of every threshold estimate.
 
-Under MODKIT_TPU_OFFLOAD=always, modkit_tpu sorts every estimate's
-confidences on its device whatever the caller passes
-(``modkit_tpu/thresholds.py``). The port does the same: a caller that
-passes no device (``adjust-mods``, ``call-mods``, ``extract calls``,
-``pileup-hemi``, ``summary``) gets ``"cuda"`` through ``resolve_device``,
-which raises without a card; a caller that passes one (pileup's run
-device) keeps it. Under ``auto`` and ``never`` the host keeps the sort and
-no device is touched.
+The port sorts every estimate's confidences on the host (``np.sort``),
+whatever ``MODKIT_TPU_OFFLOAD`` says. modkit_tpu still reads the variable:
+under ``always`` it sorts on its device (``jnp.sort``), so these tests set
+it for modkit_tpu's side and hold the port's thresholds and bytes to
+modkit_tpu's.
 """
 
 import contextlib
@@ -49,66 +46,78 @@ def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+def _refuse_the_card(monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("the estimate touched a torch device or sort")
+
+    monkeypatch.setattr(devices, "resolve_device", refuse)
+    monkeypatch.setattr(torch, "sort", refuse)
+
+
 @pytest.mark.parametrize("cmd", [
     ["call-mods", "{bam}", "{out}", "--seed", "3"],
     ["adjust-mods", "{bam}", "{out}", "--filter-probs", "--seed", "3"],
     ["summary", "{bam}", "--seed", "3"],
 ])
-def test_forced_sort_without_a_card_raises(cmd, bam, tmp_path, monkeypatch,
-                                           no_card):
+def test_host_subcommands_sort_on_the_host_under_always(
+        cmd, bam, tmp_path, monkeypatch, no_card):
+    """``call-mods``, ``adjust-mods`` and ``summary`` estimate without a
+    card under ``MODKIT_TPU_OFFLOAD=always`` (modkit_tpu's side sorts on
+    its device), with no device resolved and no torch sort, and write
+    modkit_tpu's bytes."""
     monkeypatch.setenv("MODKIT_TPU_OFFLOAD", "always")
-    out = str(tmp_path / "o.bam")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        port_main([x.format(bam=bam, out=out) for x in cmd])
+    monkeypatch.setattr(sys, "argv", ["modkit"])  # the @PG command line
+    _refuse_the_card(monkeypatch)
+    outs = []
+    for name, main in (("ref", ref_main), ("port", port_main)):
+        out = str(tmp_path / f"{name}.bam")
+        rc, text = _run(main, [x.format(bam=bam, out=out) for x in cmd])
+        assert rc == 0
+        outs.append(out if "{out}" in cmd else text)
+    if "{out}" in cmd:
+        assert filecmp.cmp(*outs, shallow=False)
+    else:
+        assert outs[0] == outs[1] and outs[1]
 
 
 @pytest.mark.parametrize("q", [0.1, 0.5, 0.9])
 def test_forced_sort_on_the_cpu_equals_the_host_sort_and_modkit_tpu(
         q, bam, monkeypatch):
-    monkeypatch.setenv("MODKIT_TPU_OFFLOAD", "never")
-    host = thresholds.estimate_thresholds(BamReader(bam), filter_percentile=q,
-                                          seed=2)
-    monkeypatch.setenv("MODKIT_TPU_OFFLOAD", "always")
-    calls = []
-    sort = thresholds._device_sorted
-
-    def spy(xs, device):
-        calls.append(torch.device(device))
-        return sort(xs, device)
-
-    monkeypatch.setattr(thresholds, "_device_sorted", spy)
-    cuda_sorts = thresholds.CUDA_SORTS
-    forced = thresholds.estimate_thresholds(
-        BamReader(bam), filter_percentile=q, seed=2, device="cpu")
-    ref = ref_thresholds.estimate_thresholds(
-        RefReader(bam), filter_percentile=q, seed=2)
-    assert calls and all(d.type == "cpu" for d in calls)
-    assert thresholds.CUDA_SORTS == cuda_sorts
-    assert forced == host == ref
-    assert set(forced) == {"C"}
+    """The port's estimate (sorted on the host) equals modkit_tpu's under
+    ``MODKIT_TPU_OFFLOAD=always`` (its forced ``jnp.sort``, on the CPU
+    here) and under ``never`` (its host sort)."""
+    got = thresholds.estimate_thresholds(BamReader(bam), filter_percentile=q,
+                                         seed=2)
+    refs = []
+    for mode in ("always", "never"):
+        # read by modkit_tpu's side only
+        monkeypatch.setenv("MODKIT_TPU_OFFLOAD", mode)
+        refs.append(ref_thresholds.estimate_thresholds(
+            RefReader(bam), filter_percentile=q, seed=2))
+    assert refs == [got, got]
+    assert set(got) == {"C"}
 
 
-def test_forced_sort_counts_only_cuda_tensors():
-    xs = np.random.default_rng(4).random(1000).astype(np.float32)
-    before = thresholds.CUDA_SORTS
-    got = thresholds.percentile_linear_interp_device(xs, 0.25, "cpu")
-    assert got == thresholds.percentile_linear_interp(np.sort(xs), 0.25)
-    assert thresholds.CUDA_SORTS == before
+@pytest.mark.parametrize("q", [0.0, 0.25, 1.0])
+def test_host_percentile_equals_modkit_tpus_device_percentile(q):
+    """The one percentile the port keeps (``np.sort`` + linear
+    interpolation) is bit-identical to modkit_tpu's device percentile."""
+    xs = np.random.default_rng(4).random(4097).astype(np.float32)
+    got = thresholds.percentile_linear_interp(np.sort(xs), q)
+    want = ref_thresholds.percentile_linear_interp_device(xs, q)
+    assert np.float32(got) == np.float32(want)
 
 
-@pytest.mark.parametrize("mode", ["auto", "never"])
+@pytest.mark.parametrize("mode", ["auto", "never", "always"])
 def test_auto_and_never_keep_the_host_sort(mode, bam, tmp_path, monkeypatch,
                                            no_card):
-    """``call-mods`` with the default estimate: equal to modkit_tpu's, with
-    no device resolved and no sort off the host."""
+    """``call-mods`` with the default estimate under each of modkit_tpu's
+    modes: equal to modkit_tpu's, with no device resolved and no torch
+    sort."""
+    # read by modkit_tpu's side only
     monkeypatch.setenv("MODKIT_TPU_OFFLOAD", mode)
     monkeypatch.setattr(sys, "argv", ["modkit"])  # the @PG command line
-
-    def refuse(*_a, **_k):
-        raise AssertionError("the estimate touched a torch device")
-
-    monkeypatch.setattr(devices, "resolve_device", refuse)
-    monkeypatch.setattr(thresholds, "_device_sorted", refuse)
+    _refuse_the_card(monkeypatch)
     outs = []
     for name, main in (("ref", ref_main), ("port", port_main)):
         out = str(tmp_path / f"{name}.bam")

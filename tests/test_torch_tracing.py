@@ -62,7 +62,6 @@ def focus_flags(bam, focus):
 @pytest.fixture(autouse=True)
 def no_profile(monkeypatch):
     monkeypatch.delenv("MODKIT_TPU_PROFILE", raising=False)
-    monkeypatch.delenv("MODKIT_TPU_OFFLOAD", raising=False)
     yield
     tracing.set_sink(None)
 
