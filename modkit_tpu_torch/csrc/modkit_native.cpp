@@ -7,7 +7,9 @@
 // to the tile's window and, with a focus, to its focus columns, mapping
 // only the calls that land there; no-calls and deletions are counted
 // straight into per-thread tile histograms. Its output equals the
-// original's, field for field (tests/test_torch_decode_walk.py).
+// original's, field for field (tests/test_torch_decode_walk.py). Its BGZF
+// tile decode (mk_decode_tile_bgzf) takes a cache of inflated blocks that
+// the tiles of a run share (BlockCache).
 //
 // The reference gets BAM decoding from C htslib (rust-htslib, Cargo.toml:49)
 // and runs its per-read MM/ML decode + per-column aggregation in compiled
@@ -30,12 +32,14 @@
 #include <chrono>
 #include <zlib.h>
 #include <cmath>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <map>
 #include <memory>
+#include <mutex>
 #include <set>
 #include <string>
 #include <thread>
@@ -1590,6 +1594,9 @@ struct MkTileOut {
   // the aligned columns of the tile's decoded reads, and the columns their
   // walk clipped to the tile (and its focus) visited
   int64_t aligned_columns, walked_columns;
+  // mk_decode_tile_bgzf: the BGZF blocks the tile's chunks needed, and
+  // those a block cache served
+  int64_t bgzf_blocks, bgzf_blocks_reused;
 };
 
 // Decode one genome tile's fetched (decompressed) BAM chunks into pileup
@@ -2007,17 +2014,105 @@ static size_t bgzf_compress_block(const uint8_t* src, size_t n, uint8_t* dst,
   return bsize;
 }
 
+// Inflated BGZF blocks of one BAM, by compressed offset, shared by the tile
+// decodes of a pileup run. A tile's chunks start at the BAI linear index
+// offset of the first read that overlaps it, so most of a tile's blocks are
+// also the previous tile's: each is inflated once and copied after that. A
+// decode claims a block before it inflates it, and another decode that
+// needs the block meanwhile waits for it (a claim is held only while its
+// block inflates, so no wait waits on a wait). Each decode registers its
+// lowest compressed offset while it inflates; the cache drops every block
+// below the lowest registered offset and the most recently started
+// decode's (tiles start in genome order, and a sorted BAM's linear index
+// does not go backwards), and empties on a new contig or BAM. A block
+// dropped too early is inflated again: the output never depends on the
+// cache.
+struct BlockCache {
+  using Block = std::shared_ptr<const std::vector<uint8_t>>;
+  std::mutex mu;
+  std::condition_variable published;
+  const uint8_t* raw = nullptr;
+  int32_t tid = -1;
+  int64_t last_start = 0;
+  std::multiset<int64_t> live;  // lowest offsets of the decodes inflating
+  std::set<int64_t> claimed;    // blocks a decode is inflating
+  std::map<int64_t, Block> blocks;
+
+  void drop_below_live() {
+    int64_t lo = last_start;
+    if (!live.empty()) lo = std::min(lo, *live.begin());
+    blocks.erase(blocks.begin(), blocks.lower_bound(lo));
+  }
+  void begin(const uint8_t* bam, int32_t t, int64_t lo) {
+    std::lock_guard<std::mutex> g(mu);
+    if (bam != raw || t != tid) {
+      blocks.clear();
+      raw = bam;
+      tid = t;
+    }
+    live.insert(lo);
+    last_start = lo;
+    drop_below_live();
+  }
+  void end(int64_t lo) {
+    std::lock_guard<std::mutex> g(mu);
+    live.erase(live.find(lo));
+    drop_below_live();
+  }
+  // The block at off, once whoever claimed it has published it; null where
+  // the caller has now claimed it, inflates it and publishes it.
+  Block find_or_claim(int64_t off) {
+    std::unique_lock<std::mutex> g(mu);
+    for (;;) {
+      auto it = blocks.find(off);
+      if (it != blocks.end()) return it->second;
+      if (claimed.insert(off).second) return nullptr;
+      published.wait(g);
+    }
+  }
+  // A claimed block's bytes (null where its inflate failed), and the claim
+  // released.
+  void publish(int64_t off, const uint8_t* data, int64_t n) {
+    Block b;
+    if (data) b = std::make_shared<const std::vector<uint8_t>>(data, data + n);
+    {
+      std::lock_guard<std::mutex> g(mu);
+      if (b) blocks.emplace(off, std::move(b));
+      claimed.erase(off);
+    }
+    published.notify_all();
+  }
+};
+
 // BGZF voffset-chunk inflation with early stop at the first complete
 // record past (tid, end) — shared by the tile decoder and the entropy
-// batch engine.
+// batch engine. With a cache, each block is copied from it where an
+// earlier or concurrent decode inflated it, and claimed, inflated and
+// published otherwise; n_blocks / n_reused (where not null) count the blocks
+// the chunks needed and those the cache served.
 static void inflate_voffset_chunks(
     const uint8_t* raw, int64_t raw_len, const int64_t* vbeg,
     const int64_t* vend, int32_t n_chunks, int32_t tid, int64_t end,
     int nt, std::vector<std::vector<uint8_t>>& datas,
-    std::vector<const uint8_t*>& ptrs, std::vector<int64_t>& lens) {
+    std::vector<const uint8_t*>& ptrs, std::vector<int64_t>& lens,
+    BlockCache* cache = nullptr, int64_t* n_blocks = nullptr,
+    int64_t* n_reused = nullptr) {
   datas.assign((size_t)n_chunks, {});
   ptrs.assign((size_t)n_chunks, nullptr);
   lens.assign((size_t)n_chunks, 0);
+  int64_t blocks = 0;
+  std::atomic<int64_t> reused{0};
+  int64_t lowest = INT64_MAX;
+  for (int32_t c = 0; c < n_chunks; ++c)
+    lowest = std::min<int64_t>(lowest, vbeg[c] >> 16);
+  struct Registered {  // the decode's offset, held while it inflates
+    BlockCache* cache;
+    int64_t lo;
+    ~Registered() {
+      if (cache) cache->end(lo);
+    }
+  } registered{n_chunks > 0 ? cache : nullptr, lowest};
+  if (registered.cache) cache->begin(raw, tid, lowest);
   bool stop = false;
   for (int32_t c = 0; c < n_chunks && !stop; ++c) {
     int64_t c0 = vbeg[c] >> 16, u0 = vbeg[c] & 0xFFFF;
@@ -2029,7 +2124,7 @@ static void inflate_voffset_chunks(
     bool hit_span_end = false;
     while (off < raw_len && !hit_span_end && !stop) {
       struct B {
-        int64_t doff, dlen, out_off;
+        int64_t coff, doff, dlen, out_off;
         uint32_t isize;
       };
       std::vector<B> batch;
@@ -2048,7 +2143,7 @@ static void inflate_voffset_chunks(
         uint32_t isize;
         std::memcpy(&isize, raw + off + bs - 4, 4);
         if (off == c1) last_block_out = base + total;
-        batch.push_back({doff, dlen, base + total, isize});
+        batch.push_back({off, doff, dlen, base + total, isize});
         total += isize;
         if (off == c1) {
           off += bs;
@@ -2058,11 +2153,19 @@ static void inflate_voffset_chunks(
         off += bs;
       }
       if (batch.empty()) break;
+      blocks += (int64_t)batch.size();
       data.resize((size_t)(base + total));
       auto do_one = [&](const B& b) {
-        if (b.isize)
-          inflate_block_raw(raw + b.doff, b.dlen, data.data() + b.out_off,
-                            b.isize);
+        if (!b.isize) return;
+        uint8_t* dst = data.data() + b.out_off;
+        BlockCache::Block hit = cache ? cache->find_or_claim(b.coff) : nullptr;
+        if (hit && hit->size() == b.isize) {
+          std::memcpy(dst, hit->data(), b.isize);
+          reused.fetch_add(1, std::memory_order_relaxed);
+          return;
+        }
+        bool ok = inflate_block_raw(raw + b.doff, b.dlen, dst, b.isize);
+        if (cache && !hit) cache->publish(b.coff, ok ? dst : nullptr, b.isize);
       };
       if (nt > 1 && batch.size() > 1) {
         std::atomic<size_t> next{0};
@@ -2106,6 +2209,14 @@ static void inflate_voffset_chunks(
     ptrs[c] = data.data() + lo;
     lens[c] = hi - lo;
   }
+  if (n_blocks) *n_blocks = blocks;
+  if (n_reused) *n_reused = reused.load();
+}
+
+void* mk_block_cache_new() { return new BlockCache(); }
+
+void mk_block_cache_free(void* cache) {
+  delete static_cast<BlockCache*>(cache);
 }
 
 int32_t mk_decode_tile_bgzf(const uint8_t* raw, int64_t raw_len,
@@ -2118,17 +2229,25 @@ int32_t mk_decode_tile_bgzf(const uint8_t* raw, int64_t raw_len,
                             const int64_t* collapse_blob,
                             int32_t collapse_len, const int8_t* focus_rule,
                             const char* ptags, int32_t n_ptags,
-                            int32_t n_threads, MkTileOut* out) {
+                            int32_t n_threads, void* block_cache,
+                            MkTileOut* out) {
   int nt = n_threads > 0 ? n_threads : 1;
   std::vector<std::vector<uint8_t>> datas;
   std::vector<const uint8_t*> ptrs;
   std::vector<int64_t> lens;
+  int64_t blocks = 0, reused = 0;
   inflate_voffset_chunks(raw, raw_len, vbeg, vend, n_chunks, tid, end, nt,
-                         datas, ptrs, lens);
-  return mk_decode_tile(ptrs.data(), lens.data(), n_chunks, tid, start, end,
-                        max_depth, force_allow, has_edge, edge_start,
-                        edge_end, edge_inverted, collapse_blob, collapse_len,
-                        focus_rule, ptags, n_ptags, n_threads, out);
+                         datas, ptrs, lens,
+                         static_cast<BlockCache*>(block_cache), &blocks,
+                         &reused);
+  int32_t rc = mk_decode_tile(ptrs.data(), lens.data(), n_chunks, tid, start,
+                              end, max_depth, force_allow, has_edge,
+                              edge_start, edge_end, edge_inverted,
+                              collapse_blob, collapse_len, focus_rule, ptags,
+                              n_ptags, n_threads, out);
+  out->bgzf_blocks = blocks;
+  out->bgzf_blocks_reused = reused;
+  return rc;
 }
 
 // Export the decoded tile's sparse events directly into caller-allocated

@@ -20,10 +20,12 @@ the source and flags, so a stale build is never loaded. The copy differs
 in its tile decode: each read's alignment is walked as runs clipped to the
 tile and its focus, and no-calls are counted in place (``NativeTile``'s
 ``aligned_columns`` and ``walked_columns`` say how much of the old per-base
-walk is left), and it has no host counting-rate probe (the port's call and
-count run on the run's device). Set ``MODKIT_TPU_DISABLE_NATIVE=1`` to
-force the Python path; it is read on every call, so a run can switch paths
-within one process.
+walk is left); its BGZF decode takes a ``BlockCache`` that the tiles of a
+run share, so a block is inflated once where tiles overlap
+(``bgzf_blocks``, ``bgzf_blocks_reused``); and it has no host
+counting-rate probe (the port's call and count run on the run's device).
+Set ``MODKIT_TPU_DISABLE_NATIVE=1`` to force the Python path; it is read on
+every call, so a run can switch paths within one process.
 """
 
 from __future__ import annotations
@@ -88,6 +90,8 @@ class _MkTileOut(ctypes.Structure):
         ("part_keys", ctypes.POINTER(ctypes.c_char_p)),
         ("aligned_columns", ctypes.c_int64),
         ("walked_columns", ctypes.c_int64),
+        ("bgzf_blocks", ctypes.c_int64),
+        ("bgzf_blocks_reused", ctypes.c_int64),
     ]
 
 
@@ -330,8 +334,13 @@ def load():
                 ctypes.POINTER(ctypes.c_int8),     # focus rule
                 ctypes.c_char_p, ctypes.c_int32,   # ptags, n_ptags
                 ctypes.c_int32,                    # n_threads
+                ctypes.c_void_p,                   # block cache or NULL
                 ctypes.POINTER(_MkTileOut),
             ]
+            lib.mk_block_cache_new.restype = ctypes.c_void_p
+            lib.mk_block_cache_new.argtypes = []
+            lib.mk_block_cache_free.restype = None
+            lib.mk_block_cache_free.argtypes = [ctypes.c_void_p]
             lib.mk_read_groups.restype = ctypes.c_int32
             lib.mk_read_groups.argtypes = [
                 ctypes.c_char_p, ctypes.c_int64,   # rec bytes
@@ -625,12 +634,15 @@ def decode_tile_bgzf(
     focus_rule: np.ndarray | None = None,
     partition_tags: list | None = None,
     n_threads: int | None = None,
+    block_cache: "BlockCache | None" = None,
 ):
     """Tile decode straight from the compressed BAM bytes: BGZF blocks
     inflate inside the native thread pool with early stop at the first
     record past the tile end (the host feed-ceiling fix — the Python
     fetch path inflated whole BAI chunks, ~2x the tile's share). Output
-    is identical to fetch_chunks_raw + decode_tile."""
+    is identical to fetch_chunks_raw + decode_tile, with or without a
+    ``block_cache`` (the run's ``BlockCache`` of this BAM: blocks that an
+    earlier or concurrent tile inflated are copied from it)."""
     lib = load()
     if lib is None:
         return None
@@ -660,6 +672,7 @@ def decode_tile_bgzf(
         1 if (has_edge and edge_filter.inverted) else 0,
         c_blob, len(blob), c_rule,
         _ptags_blob(partition_tags), len(partition_tags or ()), nt,
+        block_cache._h if block_cache is not None else None,
         ctypes.byref(out),
     )
     if rc != 0:
@@ -668,6 +681,33 @@ def decode_tile_bgzf(
         lib, out, (end - start) * max(1, int(out.n_parts)),
         keepalive=(raw, vbeg, vend, blob, fr),
     )
+
+
+class BlockCache:
+    """Inflated BGZF blocks of one BAM, shared by the tile decodes of a
+    pileup run (``decode_tile_bgzf(block_cache=...)``): a tile's chunks
+    start at the first read that overlaps it, so each block would otherwise
+    be inflated once for every tile that reaches it. It holds the blocks
+    that the decodes in flight can still need (from the lowest first block
+    among them), and empties on a new contig. Freed with the object, so a
+    decode still running holds it. ``create`` gives None without the
+    native library."""
+
+    @classmethod
+    def create(cls):
+        lib = load()
+        if lib is None:
+            return None
+        self = cls()
+        self._lib = lib
+        self._h = lib.mk_block_cache_new()
+        return self
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        if h:
+            self._lib.mk_block_cache_free(h)
+            self._h = None
 
 
 class NativeTile:
@@ -700,6 +740,10 @@ class NativeTile:
         # clipped to the tile (and its focus) visited
         self.aligned_columns = int(out.aligned_columns)
         self.walked_columns = int(out.walked_columns)
+        # the BGZF blocks the tile's chunks needed, and those a block cache
+        # served (decode_tile_bgzf; 0 from decode_tile)
+        self.bgzf_blocks = int(out.bgzf_blocks)
+        self.bgzf_blocks_reused = int(out.bgzf_blocks_reused)
         self.errors = {
             ERR_KINDS[i]: int(out.err_counts[i])
             for i in range(len(ERR_KINDS))

@@ -163,6 +163,9 @@ class TileProcessor:
         self._cache_tid: int | None = None
         self.n_used = 0
         self.n_skipped = 0
+        # the run's native.BlockCache of the reader's BAM (run_pileup sets
+        # it): a tile copies the blocks that another tile already inflated
+        self.block_cache = None
         self._dev_rr = 0  # round-robin tile -> device assignment
         # guards counters when tiles launch from parallel host workers
         self._stats_lock = threading.Lock()
@@ -271,6 +274,7 @@ class TileProcessor:
                     focus_rule=focus_rule,
                     partition_tags=self.opts.partition_tags,
                     n_threads=self.opts.decode_threads,
+                    block_cache=self.block_cache,
                 )
                 native.release_pages(reader.bam_raw, chunks)
             if res is not None:
@@ -278,6 +282,8 @@ class TileProcessor:
                 tracing.count("events", res.n_events)
                 tracing.count("aligned_columns", res.aligned_columns)
                 tracing.count("walked_columns", res.walked_columns)
+                tracing.count("bgzf_blocks", res.bgzf_blocks)
+                tracing.count("bgzf_blocks_reused", res.bgzf_blocks_reused)
                 with self._stats_lock:
                     self.n_used += res.n_used
                     self.n_skipped += res.n_skipped

@@ -561,6 +561,11 @@ def _run_pileup(cfg: PileupConfig) -> dict:
             "span", "tile", tile_idx, submitted, time.perf_counter_ns(), 0
         )
 
+    # a tile's chunks start at the first read that overlaps it, so most of
+    # its BGZF blocks are the previous tile's too: the workers share one
+    # cache of inflated blocks, each inflated once
+    if parallel_ok:
+        proc.block_cache = _native.BlockCache.create()
     pool = ThreadPoolExecutor(max_workers=n_workers)
     inflight: deque = deque()
     done = False
@@ -588,6 +593,9 @@ def _run_pileup(cfg: PileupConfig) -> dict:
         # is freed before it returns; a failed one does not wait for tiles
         # in flight
         pool.shutdown(wait=done, cancel_futures=True)
+        # freed here, or, where a failed run left decodes running, with the
+        # last of them
+        proc.block_cache = None
     ticker.finish(rows=n_rows, reads=proc.n_used, skipped=proc.n_skipped)
     writer.close()
     if journal_fh is not None:

@@ -58,7 +58,10 @@ interval size, 0 elsewhere); on the native decode's route
 ``aligned_columns`` (the aligned columns of the tile's decoded reads, each
 read whole) and ``walked_columns`` (the columns its walk visited, each
 read clipped to the tile and, with a focus, to the focus positions): their
-ratio is the share of a per-base walk the decode still does.
+ratio is the share of a per-base walk the decode still does; and
+``bgzf_blocks`` (the BGZF blocks the tile's chunks needed) and
+``bgzf_blocks_reused`` (those the run's block cache served, inflated by
+another tile): their ratio is the share of inflate the cache saved.
 
 In ``trace.json`` a span's ``ts`` is, as torch (2.11) exports its own
 events, the wall clock less the trace's ``baseTimeNanoseconds``, in µs:
@@ -81,7 +84,7 @@ SPANS = ("tile", "queued", "decode", "export", "upload", "dispatch",
 COUNTERS = ("reads_decoded", "events", "m_pad", "route", "bytes_up",
             "bytes_down", "rows", "out_bytes", "format_route",
             "focus_positions", "tile_extend_bp", "aligned_columns",
-            "walked_columns")
+            "walked_columns", "bgzf_blocks", "bgzf_blocks_reused")
 ROUTES = ("none", "quals", "f32")
 FORMAT_ROUTES = ("none", "text", "columnar", "columnar_motif", "rows")
 # the stages that launch a tile and those that finish it, both on a tile

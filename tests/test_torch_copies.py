@@ -113,7 +113,10 @@ NATIVE_PORTS = {
         "CIGAR runs clipped to the tile and its focus, counts no-calls and "
         "deletions straight into per-thread tile histograms, and reports "
         "aligned_columns and walked_columns; its output equals the "
-        "original's (tests/test_torch_decode_walk.py); it has no "
+        "original's (tests/test_torch_decode_walk.py); mk_decode_tile_bgzf "
+        "takes a cache of inflated BGZF blocks that a run's tiles share "
+        "and counts the blocks it served (tests/test_torch_block_cache.py); "
+        "it has no "
         "mk_bench_event_rate, the host counting-rate probe of the offload "
         "policy the port does not have",
     ),

@@ -231,6 +231,14 @@ def test_counters_add_up_and_rows_are_unchanged(bam, tmp_path, monkeypatch, focu
     walked = {r[2]: r[5] for r in recs if r[0] == "walked_columns"}
     assert all(walked[t] <= aligned[t] for t in aligned)
     assert 0 < total("walked_columns") < total("aligned_columns")
+    # its inflate: the blocks each tile needed, and those the run's block
+    # cache served, one of each a tile
+    for name in ("bgzf_blocks", "bgzf_blocks_reused"):
+        assert sorted(r[2] for r in recs if r[0] == name) == list(range(n_tiles))
+    blocks = {r[2]: r[5] for r in recs if r[0] == "bgzf_blocks"}
+    reused = {r[2]: r[5] for r in recs if r[0] == "bgzf_blocks_reused"}
+    assert all(0 <= reused[t] <= blocks[t] for t in blocks)
+    assert 0 < total("bgzf_blocks_reused") < total("bgzf_blocks")
 
 
 @pytest.mark.parametrize("focus", ["none", "cpg"])
@@ -263,6 +271,10 @@ def test_profile_on_the_cpu_writes_the_spans(bam, tmp_path, monkeypatch, focus):
     assert sorted(e["args"]["tile"] for e in tiles) == list(range(len(tiles)))
     assert all(e["args"]["route"] in tracing.ROUTES and "rows" in e["args"]
                for e in tiles)
+    # the native decode's inflate: the blocks a tile needed, and those the
+    # run's block cache served
+    assert all(0 <= e["args"]["bgzf_blocks_reused"] <= e["args"]["bgzf_blocks"]
+               and e["args"]["bgzf_blocks"] > 0 for e in tiles)
     # the focus scan: one a tile, on the main thread's row; its counters
     # under the tile's ``tile`` span
     rows = {e["pid"]: e["args"]["name"] for e in doc["traceEvents"]
