@@ -41,8 +41,8 @@ def control(workload: str, seed: int, data_override: dict | None = None,
     t = gen.threshold_from_hist(hist, float(config["filter_percentile"]))
     flags = [f.format(threshold=repr(t), ref="ref.fa") for f in wl["flags"]]
     workers = workers or os.cpu_count() or 1
-    ref, n, _ = reference.reference_bedmethyl(config, seed, flags, "f32", workers)
-    out = {"workload": workload, "seed": seed, "rows": n}
+    ref, n, t = reference.reference_bedmethyl(config, seed, flags, "f32", workers)
+    out = {"workload": workload, "seed": seed, "rows": n, "threshold": t}
     for precision in PRECISIONS:
         low, _, _ = reference.reference_bedmethyl(config, seed, flags, precision, workers)
         out[precision] = {

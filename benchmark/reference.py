@@ -23,6 +23,12 @@ What it implements, from modkit's documentation of ``pileup``:
 - ``--cpg --combine-strands``: rows only at reference CpGs, the + strand at
   the C and the - strand at the G summed into one row with strand ``.``.
 
+Without ``--filter-threshold`` the threshold is modkit's default estimate
+(``estimate.py``): the reads that its sampling schedule takes, and the
+percentile of their calls' confidences. The rows then take two passes over
+the truth: the reads' confidences first, then the counts at that
+threshold.
+
 ``precision="bf16"`` (or ``"fp8"``) computes the call in bfloat16 (fp8
 e4m3) instead of float32: the controls that a sound comparison has to
 reject.
@@ -32,7 +38,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from benchmark import gen
+from benchmark import estimate, gen
 
 FILTERED, CANONICAL = 0, 1
 # mod-code order of the rows (modkit sorts codes by character)
@@ -45,9 +51,16 @@ class Flags:
 
     # flags that change how the work is split, never the rows
     NEUTRAL = {"--interval-size": 1, "-t": 1, "--threads": 1}
+    # the estimate's settings, where no threshold is handed in
+    SAMPLING = {"--num-reads": ("num_reads", int), "-n": ("num_reads", int),
+                "--filter-percentile": ("filter_percentile", float),
+                "-p": ("filter_percentile", float),
+                "--sampling-interval-size": ("sampling_interval", int)}
 
     def __init__(self, flags: list):
         self.threshold = None
+        self.num_reads, self.filter_percentile = 10042, 0.1
+        self.sampling_interval = 1_000_000
         self.cpg = self.combine = False
         self.ignore = None
         i = 0
@@ -56,7 +69,11 @@ class Flags:
             if f in self.NEUTRAL:
                 i += 1 + self.NEUTRAL[f]
                 continue
-            if f == "--filter-threshold":
+            if f in self.SAMPLING:
+                name, kind = self.SAMPLING[f]
+                setattr(self, name, kind(flags[i + 1]))
+                i += 2
+            elif f == "--filter-threshold":
                 base, _, v = flags[i + 1].partition(":")
                 if base != "C":
                     raise ValueError(f"reference: threshold for {base!r}")
@@ -79,12 +96,13 @@ class Flags:
                 i += 2
             else:
                 raise ValueError(f"reference: flag {f!r} is not implemented")
-        if self.threshold is None:
-            raise ValueError("reference: needs --filter-threshold C:<t>")
         if self.combine and not self.cpg:
             raise ValueError("reference: --combine-strands needs --cpg")
         if self.ignore not in (None, "h"):
             raise ValueError(f"reference: --ignore {self.ignore!r}")
+        if self.threshold is None and (self.cpg or self.ignore):
+            raise ValueError("reference: the estimate is implemented without "
+                             "--cpg and --ignore only")
         self.codes = ["m"] if self.ignore == "h" else ["h", "m"]
 
 
@@ -373,11 +391,21 @@ def _worker_init(config, seed, flags, precision) -> None:
                    layout=gen.make_layout(config["data"], seed))
 
 
-def _count_worker(b: int) -> dict:
+def _batch(b: int) -> gen.Batch:
     w = _WORKER
-    batch = gen.batch_of(w["layout"], w["config"]["data"], w["config"]["model"],
-                         w["seed"], b)
-    return batch_counts(batch, w["flags"], w["precision"])
+    return gen.batch_of(w["layout"], w["config"]["data"], w["config"]["model"],
+                        w["seed"], b)
+
+
+def _confidence_worker(b: int) -> np.ndarray:
+    return estimate.read_confidence_hists(_batch(b))
+
+
+def _count_worker(args) -> dict:
+    b, threshold = args
+    w = _WORKER
+    w["flags"].threshold = threshold
+    return batch_counts(_batch(b), w["flags"], w["precision"])
 
 
 def _render_worker(args) -> bytes:
@@ -387,10 +415,14 @@ def _render_worker(args) -> bytes:
 
 def reference_bedmethyl(config: dict, seed: int, flags: list,
                         precision: str = "f32", workers: int = 1,
-                        block: int = 1 << 19) -> tuple[bytes, int, float]:
+                        block: int = 1 << 19,
+                        sampled: dict | None = None) -> tuple[bytes, int, float]:
     """(bedMethyl bytes, rows, threshold) of a cell's pileup, worked out
-    from the truth of ``seed`` on ``workers`` processes. Checks that the
-    threshold handed to the program is the one the truth gives."""
+    from the truth of ``seed`` on ``workers`` processes. Checks that a
+    threshold handed to the program is the one the truth gives; without
+    one, estimates it as modkit does, and puts what ``estimate.estimate``
+    found (the sampled reads, their pooled confidences, the threshold)
+    into ``sampled`` where that is given."""
     import multiprocessing as mp
 
     fl = Flags(flags)
@@ -398,17 +430,29 @@ def reference_bedmethyl(config: dict, seed: int, flags: list,
     layout = gen.make_layout(data, seed)
     counts = Counts(layout.contig, len(fl.codes))
     hist = np.zeros(513, dtype=np.int64)
+    batches = range(gen.batch_count(config))
     with mp.get_context("spawn").Pool(
             workers, initializer=_worker_init,
             initargs=(config, seed, flags, precision)) as pool:
-        for part in pool.imap_unordered(_count_worker, range(gen.batch_count(config))):
+        t = fl.threshold
+        if t is None:
+            est = estimate.estimate(
+                layout.starts, layout.spans,
+                np.concatenate(list(pool.imap(_confidence_worker, batches))),
+                len(layout.contig), fl.num_reads, fl.filter_percentile,
+                fl.sampling_interval)
+            t = est["threshold"]
+            if sampled is not None:
+                sampled.update(est)
+        for part in pool.imap_unordered(_count_worker, [(b, t) for b in batches]):
             hist += part["hist"]
             counts.merge(part)
         counts.finish()
-        t = gen.threshold_from_hist(hist, float(config["filter_percentile"]))
-        if t != fl.threshold:
-            raise ValueError(
-                f"reference: threshold {fl.threshold} is not the truth's {t}")
+        if fl.threshold is not None:
+            t = gen.threshold_from_hist(hist, float(config["filter_percentile"]))
+            if t != fl.threshold:
+                raise ValueError(
+                    f"reference: threshold {fl.threshold} is not the truth's {t}")
         res = rows(counts, fl, layout.contig)
         n = len(res["pos"])
         blocks = [({k: (v[a:a + block] if isinstance(v, np.ndarray) else v)

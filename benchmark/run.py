@@ -6,7 +6,9 @@ One run is one process. It makes the cell's modBAM from the seed in a
 child process (``gen.py``) while this one imports torch, starts CUDA and
 loads the program's kernels; runs one warm-up job; then runs pileup jobs
 back to back for ``--seconds`` (one client, closed loop); judges every
-job's output against the plain reference (``reference.py``); and prints
+job's output against the plain reference (``reference.py``), and where the
+cell hands no ``--filter-threshold`` in, every job's estimated threshold
+against the reference's estimate (``estimate.py``); and prints
 one JSON line last on stdout. A job is the user's ``modkit pileup`` over
 the whole contig: ``run_pileup`` with the ``PileupConfig`` that the
 program's CLI builds from the cell's flags, on ``cuda``.
@@ -57,11 +59,8 @@ if ROOT not in sys.path:
 # modules that may not be loaded in a run, compared by top-level name
 FORBIDDEN = ("jax", "jaxlib", "flax", "modkit_tpu")
 RSS_PERIOD_S = 0.05
-# the program's switches that every run sets: the offload policy is pinned
-# to the card, where the default ("auto") times a probe at the first tile
-# and can take the host route in one run and the card in the next, which
-# leaves the device metrics of a traced run nothing to read
-PROGRAM_ENV = {"MODKIT_TPU_OFFLOAD": "always"}
+# the index of C among the program's per-base pools of confidences (A, C, G, T)
+BASE_C = 1
 DRAIN_TIMEOUT_S = 120.0
 
 
@@ -151,6 +150,7 @@ class RssSampler(threading.Thread):
     def __init__(self):
         super().__init__(daemon=True)
         self.peak = 0
+        self.peak_at = 0.0  # perf_counter() of the highest sample
         self.reads = 0
         self.cpu_s = 0.0  # this thread's CPU time, once it has ended
         self._halt = threading.Event()
@@ -166,7 +166,9 @@ class RssSampler(threading.Thread):
     def run(self) -> None:
         try:
             while not self._halt.is_set():
-                self.peak = max(self.peak, self.vmrss())
+                v = self.vmrss()
+                if v > self.peak:
+                    self.peak, self.peak_at = v, time.perf_counter()
                 self.reads += 1
                 self._halt.wait(RSS_PERIOD_S)
         finally:
@@ -176,6 +178,47 @@ class RssSampler(threading.Thread):
         self._halt.set()
         self.join()
         return max(self.peak, self.vmrss())
+
+
+class PoolProbe:
+    """The confidences that the program's estimate pools, caught on the
+    timed path where it hands them to the percentile (``TARGET``: a dict
+    of base index -> confidences) while installed. ``take`` gives, for
+    each base, the 513-bin histogram of what was handed over since the
+    last take and how many values lay off the 1/512 grid; None where
+    nothing was handed over."""
+
+    TARGET = "modkit_tpu_torch.thresholds:thresholds_from_confidences"
+
+    def __init__(self):
+        self._pools: dict = {}
+        self._saved = None
+
+    def install(self) -> None:
+        from benchmark import estimate
+        from benchmark.trace import _resolve
+
+        owner, name = _resolve(self.TARGET)
+        real = getattr(owner, name)
+
+        def probed(confs, *a, **k):
+            out = real(confs, *a, **k)
+            for b, v in confs.items():
+                hist, off = estimate.grid_hist(v)
+                h0, o0 = self._pools.get(int(b), (0, 0))
+                self._pools[int(b)] = (h0 + hist, o0 + off)
+            return out
+        setattr(owner, name, probed)
+        self._saved = (owner, name, real)
+
+    def remove(self) -> None:
+        if self._saved is not None:
+            setattr(*self._saved)
+            self._saved = None
+
+    def take(self) -> dict | None:
+        pools, self._pools = self._pools, {}
+        return pools or None
 
 
 def pileup_config(argv: list):
@@ -202,16 +245,18 @@ def cpu_time() -> float:
     return t.user + t.system
 
 
-def run_job(cfg, drain: Drain, keep: str | None) -> tuple[float, tuple | None, str | None, float]:
-    """One pileup job: (seconds, digest, error, CPU seconds)."""
+def run_job(cfg, drain: Drain, keep: str | None) -> tuple:
+    """One pileup job: (seconds, digest, error, CPU seconds, the threshold
+    of C that the job called with)."""
     from modkit_tpu_torch.pileup import runner
 
     drain.jobs.put(keep)
     c = cpu_time()
     t = time.perf_counter()
-    err = None
+    err = threshold = None
     try:
-        runner.run_pileup(dataclasses.replace(cfg))
+        out = runner.run_pileup(dataclasses.replace(cfg))
+        threshold = out["thresholds"]["per_base"].get("C")
     except Exception as e:  # a failed job is counted, and the run goes on to judge
         err = f"{type(e).__name__}: {e}"
         gc.collect()
@@ -220,7 +265,7 @@ def run_job(cfg, drain: Drain, keep: str | None) -> tuple[float, tuple | None, s
         res = drain.results.get(timeout=DRAIN_TIMEOUT_S)
     except queue.Empty:
         res, err = None, err or "the job's output never closed"
-    return time.perf_counter() - t, res, err, cpu_time() - c
+    return time.perf_counter() - t, res, err, cpu_time() - c, threshold
 
 
 def device_info(device: str) -> dict:
@@ -260,7 +305,6 @@ def load_metric(name: str):
 
 
 def launch_counters() -> dict:
-    from modkit_tpu_torch import thresholds
     from modkit_tpu_torch.ops import counts, state
 
     return {
@@ -268,7 +312,6 @@ def launch_counters() -> dict:
         "state_f32_launches": state.STATE_F32_KERNEL_LAUNCHES,
         "state_f32_copies": state.STATE_F32_COPIES,
         "count_kernel_launches": counts.COUNT_KERNEL_LAUNCHES,
-        "cuda_sorts": thresholds.CUDA_SORTS,
     }
 
 
@@ -287,8 +330,6 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     wl, config = cell(workload, data_override)
     work = tempfile.mkdtemp(prefix="modkit-bench-")
     gen_proc = None
-    saved_env = {k: os.environ.get(k) for k in PROGRAM_ENV}
-    os.environ.update(PROGRAM_ENV)
     try:
         cfg_path = os.path.join(work, "config.json")
         with open(cfg_path, "w") as fh:
@@ -306,11 +347,6 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
             os.killpg(gen_proc.pid, signal.SIGKILL)
             gen_proc.wait()
         shutil.rmtree(work, ignore_errors=True)
-        for k, v in saved_env.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
 
 
 def _run(workload, wl, config, seed, seconds, trace, device, work, gen_proc):
@@ -343,11 +379,22 @@ def _run(workload, wl, config, seed, seconds, trace, device, work, gen_proc):
     drain.start()
     rss = RssSampler()
     rss.start()
-    jobs = []  # (seconds, digest, error, traced)
+    jobs = []  # (seconds, digest, error, CPU seconds, threshold, traced)
+    peaks = []  # the highest VmRSS sampled by each job's end
+    # where the program estimates the threshold, what its estimate pools in
+    # the warm-up and the first timed job is caught, to be judged after the
+    # window
+    probe = PoolProbe() if "--filter-threshold" not in flags else None
+    pools = []
     kept = os.path.join(work, "kept.bed")
     metrics = [load_metric(m["name"]) for m in per_layer_metrics(workload)] if trace else []
     try:
+        if probe is not None:
+            probe.install()
         jobs.append(run_job(cfg, drain, None) + (False,))  # warm-up
+        peaks.append(rss.peak)
+        if probe is not None:
+            pools.append(probe.take())
         setup_s = time.perf_counter() - T0 - build_s
         recorder = prof = None
         marks = ("bench_traced_start", "bench_traced_end")
@@ -373,6 +420,10 @@ def _run(workload, wl, config, seed, seconds, trace, device, work, gen_proc):
             while True:
                 first = len(jobs) == 1
                 jobs.append(run_job(cfg, drain, kept if first else None) + (traced,))
+                peaks.append(rss.peak)
+                if first and probe is not None:
+                    pools.append(probe.take())
+                    probe.remove()
                 if jobs[-1][2] is not None or time.perf_counter() - h0 >= length:
                     break
             edges.append((h0, time.perf_counter()))
@@ -390,6 +441,8 @@ def _run(workload, wl, config, seed, seconds, trace, device, work, gen_proc):
         peak_rss = rss.stop()
         mem_peak = torch.cuda.max_memory_allocated(0) if device == "cuda" else 0
     finally:
+        if probe is not None:
+            probe.remove()
         if rss.is_alive():
             rss.stop()
         drain.jobs.put(False)
@@ -405,7 +458,9 @@ def _run(workload, wl, config, seed, seconds, trace, device, work, gen_proc):
     log(f"jobs {len(timed)} in {t_end - t_start:.3f} s, {n_reads} reads a job; "
         f"set-up {setup_s:.3f} s, build {build_s:.3f} s apart; launch counters {counters}")
     log(f"harness threads' CPU over the run: drain {drain.cpu_s:.3f} s, "
-        f"RSS sampler {rss.cpu_s:.3f} s ({rss.reads} reads)")
+        f"RSS sampler {rss.cpu_s:.3f} s ({rss.reads} reads); peak VmRSS sampled "
+        f"{rss.peak_at - t_start:.3f} s into the window (before 0: the warm-up); "
+        f"the peak by each job's end, MB: {[round(p / 1e6, 1) for p in peaks]}")
 
     # the reference, once the window has closed and the program's state is gone
     gc.collect()
@@ -414,8 +469,9 @@ def _run(workload, wl, config, seed, seconds, trace, device, work, gen_proc):
     from benchmark import reference
 
     tr0 = time.perf_counter()
-    ref_bytes, ref_rows, _ = reference.reference_bedmethyl(
-        config, seed, flags, workers=os.cpu_count() or 1)
+    sampled = {}
+    ref_bytes, ref_rows, ref_threshold = reference.reference_bedmethyl(
+        config, seed, flags, workers=os.cpu_count() or 1, sampled=sampled)
     ref_digest = digest(ref_bytes)
     failed = sum(1 for j in timed if j[2] is not None)
     jobs_differing = sum(1 for j in jobs if j[1] != ref_digest)
@@ -428,19 +484,40 @@ def _run(workload, wl, config, seed, seconds, trace, device, work, gen_proc):
                 got = fh.read()
         differing = rows_differing(got, ref_bytes)
     log(f"reference: {ref_rows} rows in {time.perf_counter() - tr0:.3f} s")
+    if sampled:
+        # the program estimated the threshold: each job's, against the
+        # reference's in float32
+        import numpy as np
+
+        threshold_differing = sum(
+            1 for j in jobs
+            if j[4] is None or np.float32(j[4]) != np.float32(ref_threshold))
+        # and what the warm-up and the first timed job pooled, against the
+        # reference's sampled reads' confidences, bin for bin
+        pool_differing = sum(
+            1 for p in pools
+            if p is None or set(p) != {BASE_C} or p[BASE_C][1] != 0
+            or not np.array_equal(p[BASE_C][0], sampled["pooled"]))
+        log(f"reference estimate: {len(sampled['reads'])} reads sampled (quota "
+            f"{sampled['quota']}, {sampled['regions']} regions), "
+            f"{sampled['confidences']} confidences pooled, threshold "
+            f"{ref_threshold!r}; the jobs' thresholds {sorted({j[4] for j in jobs}, key=str)}; "
+            f"the probed jobs' pools (confidences, off the grid) "
+            f"{[None if p is None else {b: (int(h.sum()), o) for b, (h, o) in p.items()} for p in pools]}")
     for j in jobs:
         if j[2] is not None:
             log(f"job failed: {j[2]}")
 
     info = device_info(device)
     result = {
-        "correct": failed == 0 and jobs_differing == 0 and differing == 0,
+        "correct": (failed == 0 and jobs_differing == 0 and differing == 0
+                    and (not sampled or threshold_differing == pool_differing == 0)),
         "attempted": len(timed), "failed": failed, "metrics": {},
         "device": {**info, "memory_peak_bytes": int(mem_peak)},
     }
     e2e = {"pileup_reads_per_s": rate, "peak_rss_mb": peak_rss / 1e6, "setup_s": setup_s}
     if trace:
-        half = [j for j in timed if j[4]]
+        half = [j for j in timed if j[5]]
         if half:
             h0, h1 = edges[-1]
             log(f"traced half: {n_reads * len(half) / (h1 - h0):.3f} reads/s; "
@@ -462,13 +539,18 @@ def _run(workload, wl, config, seed, seconds, trace, device, work, gen_proc):
         spec = load_json(os.path.join(ROOT, "BENCHMARK.json"))
         for m in spec["end_to_end"]:
             if workload in m.get("workloads", [workload]):
-                result["metrics"][m["name"]] = {"value": e2e[m["name"]],
+                # ``x.cell`` reads the run's ``x``, under a bound of its own
+                # in the cells it lists
+                result["metrics"][m["name"]] = {"value": e2e[m["name"].split(".")[0]],
                                                 "unit": m["unit"]}
     checks = {
         "jobs_differing": {"value": jobs_differing, "limit": 0},
         "rows_differing": {"value": differing, "limit": 0},
         "jobs_failed": {"value": failed, "limit": 0},
     }
+    if sampled:
+        checks["threshold_differing"] = {"value": threshold_differing, "limit": 0}
+        checks["pool_differing"] = {"value": pool_differing, "limit": 0}
     result["build_s"] = build_s
     result["checks"] = checks
     return result
@@ -502,7 +584,7 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
     # the program's own switches (profiling, native route, multi-host) stay
-    # at what a user gets by default; run_cell sets PROGRAM_ENV
+    # at what a user gets by default
     for k in [k for k in os.environ if k.startswith("MODKIT_TPU_")]:
         del os.environ[k]
     for d in ("TRITON_CACHE_DIR", "TORCH_EXTENSIONS_DIR"):

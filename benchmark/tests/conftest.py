@@ -16,7 +16,7 @@ if ROOT not in sys.path:
 # to seconds on the CPU
 SMALL = {"contig_length": 150000}
 CELLS = ("allc-5mC5hmC-30x.pileup", "cpg-5mCG5hmCG-30x.cpg-combined",
-         "allc-5mC5hmC-30x.traditional")
+         "allc-5mC5hmC-30x.traditional", "allc-5mC5hmC-30x.estimate")
 
 
 def pytest_configure(config):

@@ -42,7 +42,7 @@ def test_sound_run(workload):
     assert res["metrics"]["setup_s"]["value"] > 0
 
 
-@pytest.mark.parametrize("workload", [CELLS[0], CELLS[2]])
+@pytest.mark.parametrize("workload", [CELLS[0], CELLS[2], CELLS[3]])
 def test_traced_run_reports_host_layers(workload):
     res = _run(workload, trace=True)
     assert res["correct"] is True
@@ -64,16 +64,17 @@ def _alter_text(monkeypatch):
 
 
 def _alter_rows(monkeypatch):
+    """One count of the first row that the motif route formats."""
     from modkit_tpu_torch.pileup import engine
 
-    real = engine.combine_strand_rows
+    real = engine.decode_counts_columnar
 
     def altered(*a, **k):
         out = real(*a, **k)
-        if out:
-            out[0][1][0].n_canonical += 1
+        if len(out):
+            out.n_can[0] += 1
         return out
-    monkeypatch.setattr(engine, "combine_strand_rows", altered)
+    monkeypatch.setattr(engine, "decode_counts_columnar", altered)
 
 
 def _drop_half(monkeypatch):
@@ -99,21 +100,55 @@ def _state_unchanged(monkeypatch):
         monkeypatch.setattr(engine, name, zeros)
 
 
+def _shift_threshold(monkeypatch):
+    """The estimate one step of the confidences' 1/512 grid higher."""
+    from modkit_tpu_torch import thresholds
+
+    real = thresholds.estimate_thresholds
+
+    def shifted(*a, **k):
+        return {b: t + 1 / 512 for b, t in real(*a, **k).items()}
+    monkeypatch.setattr(thresholds, "estimate_thresholds", shifted)
+
+
+def _half_sampled(monkeypatch):
+    """Half of the estimate's sample left out: the percentile taken over the
+    first half of the pooled confidences."""
+    from modkit_tpu_torch import thresholds
+
+    real = thresholds.sample_reads
+
+    def half(*a, **k):
+        out = real(*a, **k)
+        if k.get("confidences_only"):
+            out = {b: v[:len(v) // 2] for b, v in out.items()}
+        return out
+    monkeypatch.setattr(thresholds, "sample_reads", half)
+
+
 FAULTS = {
-    "answer_altered": {CELLS[0]: _alter_text, CELLS[1]: _alter_rows, CELLS[2]: _alter_rows},
+    "answer_altered": {CELLS[0]: _alter_text, CELLS[1]: _alter_rows, CELLS[2]: _alter_rows,
+                       CELLS[3]: _alter_text},
     "half_left_out": {c: _drop_half for c in CELLS},
     "state_unchanged": {c: _state_unchanged for c in CELLS},
+    "threshold_shifted": {CELLS[3]: _shift_threshold},
+    "half_sampled": {CELLS[3]: _half_sampled},
+}
+# the checks that each fault has to trip; the rest trip the output's two
+CAUGHT_BY = {
+    "threshold_shifted": ("jobs_differing", "rows_differing", "threshold_differing"),
+    "half_sampled": ("pool_differing",),
 }
 
 
-@pytest.mark.parametrize("workload", CELLS)
-@pytest.mark.parametrize("fault", sorted(FAULTS))
+@pytest.mark.parametrize("fault,workload",
+                         [(f, c) for f in sorted(FAULTS) for c in CELLS if c in FAULTS[f]])
 def test_fault_is_caught(monkeypatch, workload, fault):
     FAULTS[fault][workload](monkeypatch)
     res = _run(workload)
     assert res["correct"] is False
-    assert res["checks"]["jobs_differing"]["value"] >= 1
-    assert res["checks"]["rows_differing"]["value"] > 0
+    for check in CAUGHT_BY.get(fault, ("jobs_differing", "rows_differing")):
+        assert res["checks"][check]["value"] >= 1
 
 
 def test_no_card_no_result():

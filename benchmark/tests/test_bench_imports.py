@@ -16,7 +16,7 @@ from conftest import ROOT
 BENCH = os.path.join(ROOT, "benchmark")
 SOURCES = sorted(glob.glob(os.path.join(BENCH, "*.py"))
                  + glob.glob(os.path.join(BENCH, "metrics", "*.py")))
-PLAIN = ("gen.py", "bamio.py", "reference.py", "control.py")
+PLAIN = ("gen.py", "bamio.py", "reference.py", "control.py", "estimate.py")
 
 
 def _imports(path: str) -> set:
@@ -43,7 +43,7 @@ def test_plain_modules_import_nothing_of_the_program(name):
 
 def test_loaded_modules():
     code = ("import sys; sys.path.insert(0, %r); "
-            "import benchmark.gen, benchmark.reference, benchmark.control; "
+            "import benchmark.gen, benchmark.reference, benchmark.control, benchmark.estimate; "
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'flax', 'modkit_tpu', 'modkit_tpu_torch', 'torch'}))" % ROOT)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
