@@ -33,16 +33,21 @@ PRECISIONS = ("bf16", "fp8")
 
 
 def control(workload: str, seed: int, data_override: dict | None = None,
-            workers: int | None = None) -> dict:
-    wl, config = run.cell(workload, data_override)
-    layout = gen.make_layout(config["data"], seed)
-    hist = sum(gen.confidence_hist(gen.batch_of(layout, config["data"], config["model"], seed, b))
-               for b in range(gen.batch_count(config)))
-    t = gen.threshold_from_hist(hist, float(config["filter_percentile"]))
-    flags = [f.format(threshold=repr(t), ref="ref.fa") for f in wl["flags"]]
+            workers: int | None = None, cell_spec: tuple | None = None) -> dict:
+    """The controls' numbers for one seed; ``cell_spec``, a (workload,
+    configuration) pair, stands in for the files that ``workload`` names."""
+    wl, config = cell_spec or run.cell(workload, data_override)
+    layout = gen.make_layout(config, seed)
+    hist: dict = {}
+    for b in range(gen.batch_count(config)):
+        for base, h in gen.confidence_hist(gen.batch_of(layout, config, seed, b)).items():
+            hist[base] = hist.get(base, 0) + h
+    pct = float(config["filter_percentile"])
+    flags = run.workload_flags(
+        wl, {base: gen.threshold_from_hist(h, pct) for base, h in hist.items()}, "ref.fa")
     workers = workers or os.cpu_count() or 1
     ref, n, t = reference.reference_bedmethyl(config, seed, flags, "f32", workers)
-    out = {"workload": workload, "seed": seed, "rows": n, "threshold": t}
+    out = {"workload": workload, "seed": seed, "rows": n, "thresholds": t}
     for precision in PRECISIONS:
         low, _, _ = reference.reference_bedmethyl(config, seed, flags, precision, workers)
         out[precision] = {

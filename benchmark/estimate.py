@@ -23,8 +23,10 @@ whose reads are all primary and mapped:
   above the canonical one (1 - their sum), else the canonical one, with
   an ML value q standing for (q + 0.5) / 256, in float32; calls at
   inserted bases are left out (only mapped positions are sampled);
-- the threshold: the linearly interpolated percentile of the pooled
-  confidences, in float32 as ``thresholds.rs:17`` computes it.
+- the threshold of each primary base: the linearly interpolated percentile
+  of the sampled reads' confidences of calls on that base, in float32 as
+  ``thresholds.rs:17`` computes it; a read is sampled where it carries a
+  call on any base.
 
 Every confidence lies on the 1/512 grid, so the pool is kept as a
 histogram of 513 bins and the sorted values are read from its cumulative
@@ -41,16 +43,17 @@ MIN_READS_PER_REGION = 50
 BINS = 513
 
 
-def read_confidence_hists(batch) -> np.ndarray:
-    """[reads, 513] counts of each read's call confidences, in 512ths, over
-    its calls at aligned bases."""
-    al = batch.call_pos >= 0
-    h = 2 * batch.qh[al].astype(np.int64) + 1
-    m = 2 * batch.qm[al].astype(np.int64) + 1
-    conf = np.maximum(np.maximum(h, m), 512 - h - m)
+def read_confidence_hists(batch) -> dict:
+    """Per called base, [reads, 513] counts of each read's call confidences
+    in 512ths (``gen.Calls.confidence``), over its calls at aligned bases."""
     n = len(batch.starts)
-    flat = np.bincount(batch.call_read[al] * BINS + conf, minlength=n * BINS)
-    return flat.reshape(n, BINS).astype(np.int32)
+    out = {}
+    for c in batch.calls:
+        al = c.pos >= 0
+        conf = c.confidence()[al]
+        flat = np.bincount(c.read[al] * BINS + conf, minlength=n * BINS)
+        out[c.base] = flat.reshape(n, BINS).astype(np.int32)
+    return out
 
 
 def grid_hist(values: np.ndarray, chunk: int = 1 << 20) -> tuple[np.ndarray, int]:
@@ -129,16 +132,20 @@ def percentile(hist: np.ndarray, q: float) -> float:
     return float(y0 * (F32(1.0) - g) + y1 * g)
 
 
-def estimate(starts: np.ndarray, spans: np.ndarray, hists: np.ndarray,
+def estimate(starts: np.ndarray, spans: np.ndarray, hists: dict,
              contig_len: int, num_reads: int, filter_percentile: float,
              interval: int) -> dict:
-    """The schedule's reads, their pooled confidences and the threshold,
+    """The schedule's reads, their pooled confidences and the thresholds,
     for one contig that holds every read of the file; ``hists`` is
-    ``read_confidence_hists`` of every read, in file order."""
+    ``read_confidence_hists`` of every read, in file order. A read is
+    eligible where it carries a call of any base; the pool and the
+    percentile are taken per base (thresholds.rs:82
+    ``calc_thresholds_per_base``)."""
     quota = contig_quota(num_reads, len(starts), len(starts))
     schedule = regions(contig_len, quota, interval)
-    reads = sample(starts, spans, hists.sum(axis=1) > 0, schedule)
-    pooled = hists[reads].sum(axis=0, dtype=np.int64)
+    eligible = sum(h.sum(axis=1) for h in hists.values()) > 0
+    reads = sample(starts, spans, eligible, schedule)
+    pooled = {b: h[reads].sum(axis=0, dtype=np.int64) for b, h in hists.items()}
     return {"quota": quota, "regions": len(schedule), "reads": reads,
-            "pooled": pooled, "confidences": int(pooled.sum()),
-            "threshold": percentile(pooled, filter_percentile)}
+            "pooled": pooled, "confidences": {b: int(p.sum()) for b, p in pooled.items()},
+            "thresholds": {b: percentile(p, filter_percentile) for b, p in pooled.items()}}

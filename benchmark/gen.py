@@ -10,6 +10,36 @@ Every size comes from the configuration's ``data`` block; the multiset of
 read lengths and the read count are fixed by the configuration, and the
 seed draws the contig, where the reads lie, their errors and their calls.
 
+The calls are the configuration's call set, a list of groups in model
+order (``call_groups``), each one basecaller model's calls on one primary
+base. A configuration gives either ``"model"`` (``"allc"`` or ``"cpg"``:
+one C group whose truth keys are the ``data`` keys of the same meaning,
+see ``model_groups``) or ``"call_groups"``, a list of objects with the keys
+
+- ``base``: the primary base, ``"C"`` or ``"A"`` (at most one group each);
+- ``codes``: its mod codes in the model's order, one or two
+  (``["h", "m"]``, ``["a"]``);
+- ``context``: ``"all"`` (every such base of the read) or ``"cpg"`` (read
+  CpGs, C only);
+- ``modified_bases_threshold``: dorado's ``--modified-bases-threshold``, or
+  null (none): a base is written only where its ML values sum to at least
+  floor(256 t), the bases it skips are unknown (the ``?`` mode);
+- ``sites``: which aligned bases are sites, ``"cpg"`` (read CpGs) or
+  ``"all"``; ``site_share``, ``site_level_high``, ``site_level_low``: a
+  reference position's modified share is the high level with probability
+  ``site_share``, else the low one; ``background``: the modified share of
+  calls off the sites (inserted bases, and a C group's non-CpG C's);
+- ``code_shares``: the share of the modified calls that each code but the
+  last takes (the last takes the rest);
+- ``miscall_rate``, ``conf_spread``, ``conf_beta_b``: how often the top
+  class is wrong, and the spread of its probability, 1 - spread * Beta(1, b).
+
+Random streams: ``(seed, 0)`` draws the contig, the C sites' levels and
+where the reads lie; ``(seed, 1, b)`` batch ``b``'s errors, qualities and
+its C calls, in that order; an A group draws its sites from ``(seed, 2)``
+and batch ``b``'s calls from ``(seed, 3, b)``, so a C group draws the same
+with or without one.
+
 Run as a script it writes ``reads.bam`` (+ ``.bai``), ``ref.fa`` (+
 ``.fai``) and ``meta.json`` into ``--out``:
 
@@ -38,10 +68,55 @@ from benchmark import bamio  # noqa: E402
 # base codes 0..3 = A C G T
 A, C, G, T = 0, 1, 2, 3
 ASCII = np.frombuffer(b"ACGT", dtype=np.uint8)
+# the primary bases a group may call, and each one's complement
+BASES = {"A": A, "C": C}
+COMPLEMENT = {A: T, C: G}
+GROUP_KEYS = ("base", "codes", "context", "modified_bases_threshold", "sites",
+              "site_share", "site_level_high", "site_level_low", "background",
+              "code_shares", "miscall_rate", "conf_spread", "conf_beta_b")
 
 
 def rng_for(seed: int, *stream: int) -> np.random.Generator:
     return np.random.default_rng([int(seed) & ((1 << 64) - 1), *stream])
+
+
+def model_groups(model: str, data: dict) -> list:
+    """The call set of a configuration that names a ``model``: one C group,
+    its truth from the ``data`` keys of the same meaning."""
+    if model not in ("allc", "cpg"):
+        raise ValueError(f"unknown model {model!r}")
+    allc = model == "allc"
+    return [{
+        "base": "C", "codes": ["h", "m"], "context": "all" if allc else "cpg",
+        "modified_bases_threshold": data["modified_bases_threshold"] if allc else None,
+        "sites": "cpg", "site_share": data["cpg_methylated_share"],
+        "site_level_high": data["cpg_beta_high"], "site_level_low": data["cpg_beta_low"],
+        "background": data["non_cpg_methylated"],
+        "code_shares": [data["hmc_share_of_methylated"]],
+        "miscall_rate": data["miscall_rate"], "conf_spread": data["conf_spread"],
+        "conf_beta_b": data["conf_beta_b"],
+    }]
+
+
+def call_groups(config: dict) -> list:
+    """The configuration's call set in model order (module docstring):
+    its ``call_groups``, or its ``model`` spelled out."""
+    if "model" in config:
+        if "call_groups" in config:
+            raise ValueError("a configuration gives a model or call groups, not both")
+        return model_groups(config["model"], config["data"])
+    groups = config["call_groups"]
+    if not groups or len({g["base"] for g in groups}) != len(groups):
+        raise ValueError("call groups: at least one, and one a base")
+    for g in groups:
+        if set(g) != set(GROUP_KEYS):
+            raise ValueError(f"call group keys {sorted(set(g) ^ set(GROUP_KEYS))}")
+        if (g["base"] not in BASES or not 1 <= len(g["codes"]) <= 2
+                or len(g["code_shares"]) != len(g["codes"]) - 1
+                or g["context"] not in ("all", "cpg") or g["sites"] not in ("all", "cpg")
+                or ("cpg" in (g["context"], g["sites"]) and g["base"] != "C")):
+            raise ValueError(f"call group {g}: not one the generator makes")
+    return groups
 
 
 @dataclass
@@ -49,13 +124,20 @@ class Layout:
     """What is fixed for the whole run: the contig and where each read lies."""
 
     contig: np.ndarray  # uint8 base codes, [L]
-    site_beta: np.ndarray  # float32 [L]: methylated share at a CpG site
+    site_level: dict  # called base (str) -> float32 [L]: modified share at a site
     starts: np.ndarray  # int64 [n], sorted
     spans: np.ndarray  # int64 [n]: reference bases each read covers
     reverse: np.ndarray  # bool [n]
 
 
-def make_layout(data: dict, seed: int) -> Layout:
+def _site_levels(u: np.ndarray, g: dict) -> np.ndarray:
+    return np.where(u < float(g["site_share"]), np.float32(g["site_level_high"]),
+                    np.float32(g["site_level_low"])).astype(np.float32)
+
+
+def make_layout(config: dict, seed: int) -> Layout:
+    data = config["data"]
+    groups = {g["base"]: g for g in call_groups(config)}
     length = int(data["contig_length"])
     rng = rng_for(seed, 0)
     gc = float(data["gc_before_cpg_depletion"])
@@ -65,10 +147,12 @@ def make_layout(data: dict, seed: int) -> Layout:
     cg = np.flatnonzero((contig[:-1] == C) & (contig[1:] == G))
     lose = cg[rng.random(len(cg)) >= float(data["cpg_kept"])]
     contig[lose + 1] = A
-    site_beta = np.where(
-        rng.random(length) < float(data["cpg_methylated_share"]),
-        np.float32(data["cpg_beta_high"]), np.float32(data["cpg_beta_low"]),
-    ).astype(np.float32)
+    # the C sites' draw is made with or without a C group, so that the
+    # reads lie where they do
+    u = rng.random(length)
+    site_level = {"C": _site_levels(u, groups["C"])} if "C" in groups else {}
+    if "A" in groups:
+        site_level["A"] = _site_levels(rng_for(seed, 2).random(length), groups["A"])
 
     spans = read_spans(data)
     n = len(spans)
@@ -76,7 +160,7 @@ def make_layout(data: dict, seed: int) -> Layout:
     starts = (rng.random(n) * (length - spans + 1)).astype(np.int64)
     order = np.argsort(starts, kind="stable")
     reverse = rng.random(n) < float(data["reverse_share"])
-    return Layout(contig, site_beta, starts[order], spans[order], reverse)
+    return Layout(contig, site_level, starts[order], spans[order], reverse)
 
 
 def read_spans(data: dict) -> np.ndarray:
@@ -96,12 +180,33 @@ def read_spans(data: dict) -> np.ndarray:
     return np.clip(np.rint(np.exp(mu + sigma * z)), lo, hi).astype(np.int64)
 
 
-def batch_of(layout: Layout, data: dict, model: str, seed: int, b: int) -> Batch:
+def batch_of(layout: Layout, config: dict, seed: int, b: int) -> Batch:
     """Batch ``b`` of the run's reads (``batch_reads`` each, file order)."""
-    size = int(data["batch_reads"])
+    size = int(config["data"]["batch_reads"])
     r0 = b * size
-    return make_batch(layout, data, model, seed, b, r0,
-                      min(r0 + size, len(layout.starts)))
+    return make_batch(layout, config, seed, b, r0, min(r0 + size, len(layout.starts)))
+
+
+@dataclass
+class Calls:
+    """One call group's calls over a batch, in query order."""
+
+    base: str  # primary base, "A" or "C"
+    codes: list  # mod codes in model order
+    q: np.ndarray  # int64, sorted: query index of each call
+    read: np.ndarray  # int64: its read
+    pos: np.ndarray  # int64: its reference position, -1 if inserted
+    ml: np.ndarray  # uint8 [codes, calls]: each code's ML value
+
+    def confidence(self) -> np.ndarray:
+        """Each call's confidence in 512ths: the largest class probability,
+        an ML value q standing for (q + 0.5) / 256 and the canonical class
+        for 1 - their sum."""
+        x = 2 * self.ml.astype(np.int32) + 1
+        best, total = x[0], x[0]
+        for row in x[1:]:
+            best, total = np.maximum(best, row), total + row
+        return np.maximum(best, 512 - total)
 
 
 @dataclass
@@ -127,11 +232,7 @@ class Batch:
     sub_base: np.ndarray  # uint8: the read's base there (reference orientation)
     seq: np.ndarray  # uint8 [Q]: base codes in reference orientation
     qual: np.ndarray  # uint8 [Q]
-    call_q: np.ndarray  # int64, sorted: query index of each call
-    call_read: np.ndarray  # int64: its read
-    call_pos: np.ndarray  # int64: its reference position, -1 if inserted
-    qh: np.ndarray  # uint8: ML value of 5hmC
-    qm: np.ndarray  # uint8: ML value of 5mC
+    calls: list  # Calls of each group, in model order
 
     def read_of_col(self, col: np.ndarray) -> np.ndarray:
         return np.searchsorted(self.col_off, col, side="right") - 1
@@ -152,9 +253,9 @@ def _sorted_unique_draw(rng, total: int, rate: float) -> np.ndarray:
     return np.unique(rng.integers(0, total, n))
 
 
-def make_batch(layout, data, model, seed, b, r0, r1) -> Batch:
-    if model not in ("allc", "cpg"):
-        raise ValueError(f"unknown model {model!r}")
+def make_batch(layout, config, seed, b, r0, r1) -> Batch:
+    data = config["data"]
+    groups = call_groups(config)
     rng = rng_for(seed, 1, b)
     starts = layout.starts[r0:r1]
     spans = layout.spans[r0:r1]
@@ -197,82 +298,103 @@ def make_batch(layout, data, model, seed, b, r0, r1) -> Batch:
     q_total = len(seq)
     qual = quality_table(data)[rng.integers(0, 256, q_total, dtype=np.uint8)]
 
-    # the read's own orientation: a reverse read's C is a G here, and its
-    # next base is the one before
-    rev_q = np.repeat(reverse, q_len)
-    is_c = np.where(rev_q, seq == G, seq == C)
-    first = np.zeros(q_total, dtype=bool)
-    first[q_off] = True
-    last = np.zeros(q_total, dtype=bool)
-    last[q_off + q_len - 1] = True
-    nxt_g = np.zeros(q_total, dtype=bool)
-    nxt_g[:-1] = seq[1:] == G
-    prv_c = np.zeros(q_total, dtype=bool)
-    prv_c[1:] = seq[:-1] == C
-    cpg = np.where(rev_q, prv_c & ~first, nxt_g & ~last) & is_c
-    call_q = np.flatnonzero(cpg if model == "cpg" else is_c)
+    reads = dict(starts=starts, col_off=col_off, q_off=q_off, q_len=q_len,
+                 rev_q=np.repeat(reverse, q_len), seq=seq, del_col=del_col,
+                 ins_final=ins_at + np.arange(len(ins_at)))
+    calls = [_group_calls(g, layout, reads,
+                          rng if g["base"] == "C" else rng_for(seed, 3, b))
+             for g in groups]
+    return Batch(r0, starts, spans, reverse, col_off, q_off, q_len,
+                 del_col, ins_col, ins_len, sub_col, sub_base, seq, qual, calls)
+
+
+def _group_calls(g: dict, layout: Layout, reads: dict, rng) -> Calls:
+    """One group's calls on a batch's reads (``reads``: their query in
+    reference orientation and where it lies), drawn from ``rng``."""
+    seq, rev_q, q_off, q_len = reads["seq"], reads["rev_q"], reads["q_off"], reads["q_len"]
+    base = BASES[g["base"]]
+    q_total = len(seq)
+    # the read's own orientation: a reverse read's base is the complement
+    # here, and its next base is the one before
+    is_b = np.where(rev_q, seq == COMPLEMENT[base], seq == base)
+    if "cpg" in (g["context"], g["sites"]):
+        first = np.zeros(q_total, dtype=bool)
+        first[q_off] = True
+        last = np.zeros(q_total, dtype=bool)
+        last[q_off + q_len - 1] = True
+        nxt_g = np.zeros(q_total, dtype=bool)
+        nxt_g[:-1] = seq[1:] == G
+        prv_c = np.zeros(q_total, dtype=bool)
+        prv_c[1:] = seq[:-1] == C
+        cpg = np.where(rev_q, prv_c & ~first, nxt_g & ~last) & is_b
+    call_q = np.flatnonzero(cpg if g["context"] == "cpg" else is_b)
 
     # each call's reference position: through the inserted bases, the
     # deleted columns and the read's start
+    del_col, ins_final = reads["del_col"], reads["ins_final"]
     inserted = np.zeros(q_total, dtype=bool)
-    ins_final = ins_at + np.arange(len(ins_at))
     inserted[ins_final] = True
     cq_aligned = ~inserted[call_q]
     kept_idx = call_q - np.searchsorted(ins_final, call_q)
     col = kept_idx + np.searchsorted(del_col - np.arange(len(del_col)), kept_idx, side="right")
     call_read = np.searchsorted(q_off, call_q, side="right") - 1
-    call_pos = np.where(cq_aligned, starts[call_read] + col - col_off[call_read], -1)
+    call_pos = np.where(cq_aligned, reads["starts"][call_read] + col
+                        - reads["col_off"][call_read], -1)
 
-    # the true state at a CpG follows the site's methylated share,
-    # elsewhere a small background
+    # the true state at a site follows the site's modified share, elsewhere
+    # the background
     nc = len(call_q)
-    beta = np.where(
-        cpg[call_q] & cq_aligned, layout.site_beta[np.maximum(call_pos, 0)],
-        np.float32(data["non_cpg_methylated"]))
+    site = (cpg[call_q] if g["sites"] == "cpg" else True) & cq_aligned
+    beta = np.where(site, layout.site_level[g["base"]][np.maximum(call_pos, 0)],
+                    np.float32(g["background"]))
     u = rng.random(nc, dtype=np.float32)
-    hmc = np.float32(data["hmc_share_of_methylated"])
-    # classes 0 canonical, 1 5hmC, 2 5mC
-    true = np.where(u < beta * hmc, 1, np.where(u < beta, 2, 0)).astype(np.int8)
-    wrong = rng.random(nc, dtype=np.float32) < np.float32(data["miscall_rate"])
-    top = np.where(wrong, (true + rng.integers(1, 3, nc, dtype=np.int8)) % 3, true)
+    # classes 0 canonical, 1 + j code j: with two codes the first takes
+    # its share of the modified calls, the second the rest
+    k = len(g["codes"]) + 1
+    true = np.where(u < beta, k - 1, 0)
+    if k == 3:
+        true = np.where(u < beta * np.float32(g["code_shares"][0]), 1, true)
+    true = true.astype(np.int8)
+    wrong = rng.random(nc, dtype=np.float32) < np.float32(g["miscall_rate"])
+    top = np.where(wrong, (true + rng.integers(1, k, nc, dtype=np.int8)) % k, true)
     # the top class's probability 1 - spread * Beta(1, b), by inversion;
-    # the rest split at random between the other two classes
-    bb = np.float32(1.0 / float(data["conf_beta_b"]))
-    conf = np.float32(1.0) - np.float32(data["conf_spread"]) * (
+    # the rest goes to the other class, or splits at random between the
+    # other two
+    bb = np.float32(1.0 / float(g["conf_beta_b"]))
+    conf = np.float32(1.0) - np.float32(g["conf_spread"]) * (
         np.float32(1.0) - rng.random(nc, dtype=np.float32) ** bb)
     rest = np.float32(1.0) - conf
-    split = rng.random(nc, dtype=np.float32)
-    second = (top + rng.integers(1, 3, nc, dtype=np.int8)) % 3
-    a_, b_ = rest * split, rest * (np.float32(1.0) - split)
-    ph = np.where(top == 1, conf, np.where(second == 1, a_, b_))
-    pm = np.where(top == 2, conf, np.where(second == 2, a_, b_))
-    qh = np.minimum(ph * np.float32(256), np.float32(255)).astype(np.int16)
-    qm = np.minimum(pm * np.float32(256), np.float32(255)).astype(np.int16)
-    # keep the two ML values summing to at most 255 (a probability <= 1)
-    over = np.maximum(qh + qm - 255, 0)
-    lower_h = qh <= qm
-    qh = np.where(lower_h, qh - over, qh).astype(np.uint8)
-    qm = np.where(lower_h, qm, qm - over).astype(np.uint8)
-    if model == "allc":
-        # an all-context model writes a C only where the modified classes'
-        # ML values reach --modified-bases-threshold on the ML grid; the C's
-        # it skips are unknown (the `?` mode)
-        least = int(np.floor(float(data["modified_bases_threshold"]) * 256))
-        emit = qh.astype(np.int32) + qm >= least
+    if k == 2:
+        ml = np.minimum(np.where(top == 1, conf, rest) * np.float32(256),
+                        np.float32(255)).astype(np.uint8)[None]
+    else:
+        split = rng.random(nc, dtype=np.float32)
+        second = (top + rng.integers(1, 3, nc, dtype=np.int8)) % 3
+        a_, b_ = rest * split, rest * (np.float32(1.0) - split)
+        ph = np.where(top == 1, conf, np.where(second == 1, a_, b_))
+        pm = np.where(top == 2, conf, np.where(second == 2, a_, b_))
+        qh = np.minimum(ph * np.float32(256), np.float32(255)).astype(np.int16)
+        qm = np.minimum(pm * np.float32(256), np.float32(255)).astype(np.int16)
+        # keep the two ML values summing to at most 255 (a probability <= 1)
+        over = np.maximum(qh + qm - 255, 0)
+        lower_h = qh <= qm
+        ml = np.stack([np.where(lower_h, qh - over, qh).astype(np.uint8),
+                       np.where(lower_h, qm, qm - over).astype(np.uint8)])
+    t = g["modified_bases_threshold"]
+    if t is not None:
+        # an all-context model writes a base only where the modified
+        # classes' ML values reach --modified-bases-threshold on the ML
+        # grid; the bases it skips are unknown (the `?` mode)
+        emit = ml.astype(np.int32).sum(axis=0) >= int(np.floor(float(t) * 256))
         call_q, call_read, call_pos = call_q[emit], call_read[emit], call_pos[emit]
-        qh, qm = qh[emit], qm[emit]
-    return Batch(r0, starts, spans, reverse, col_off, q_off, q_len,
-                 del_col, ins_col, ins_len, sub_col, sub_base, seq, qual,
-                 call_q, call_read, call_pos, qh, qm)
+        ml = np.ascontiguousarray(ml[:, emit])
+    return Calls(g["base"], list(g["codes"]), call_q, call_read, call_pos, ml)
 
 
-def confidence_hist(batch: Batch) -> np.ndarray:
-    """Counts of each call's confidence, in 512ths: max of the two mod
-    probabilities (q + 0.5) / 256 and the canonical one 1 - their sum."""
-    h = 2 * batch.qh.astype(np.int32) + 1
-    m = 2 * batch.qm.astype(np.int32) + 1
-    conf = np.maximum(np.maximum(h, m), 512 - h - m)
-    return np.bincount(conf, minlength=513)
+def confidence_hist(batch: Batch) -> dict:
+    """Per called base, counts of each call's confidence in 512ths
+    (``Calls.confidence``)."""
+    return {c.base: np.bincount(c.confidence(), minlength=513) for c in batch.calls}
 
 
 def threshold_from_hist(hist: np.ndarray, percentile: float) -> float:
@@ -323,34 +445,41 @@ def cigar_runs(batch: Batch):
 
 
 def encode_batch(batch: Batch, mapq: int) -> list:
-    """BAM records (bytes) of the batch's reads."""
+    """BAM records (bytes) of the batch's reads: MM holds one group for
+    each (base, code) in model order, ML their values in the same order."""
     run_op, run_len, run_off = cigar_runs(batch)
     cig_all = ((run_len << 4) | run_op).astype("<u4")
-    call_off = np.searchsorted(batch.call_read, np.arange(len(batch.starts) + 1))
+    n = len(batch.starts)
+    call_off = [np.searchsorted(c.read, np.arange(n + 1)) for c in batch.calls]
     records = []
-    for i in range(len(batch.starts)):
+    for i in range(n):
         a, b = int(batch.q_off[i]), int(batch.q_off[i] + batch.q_len[i])
         rev = bool(batch.reverse[i])
         seq = batch.seq[a:b]
-        c0, c1 = int(call_off[i]), int(call_off[i + 1])
-        qh, qm = batch.qh[c0:c1], batch.qm[c0:c1]
-        # C's skipped since the previous call, in the read's orientation
-        is_c = seq == (G if rev else C)
-        c_rank = np.cumsum(is_c) - 1
-        r = c_rank[batch.call_q[c0:c1] - a]
-        if rev:
-            r = (int(is_c.sum()) - 1 - r)[::-1]
-        d = np.diff(r, prepend=-1) - 1
-        deltas = "".join("," + str(x) for x in d.tolist())
-        if rev:  # MM/ML list calls in the read's own orientation
-            qh, qm = qh[::-1], qm[::-1]
-        ml = np.concatenate([qh, qm])
+        mm, ml = [], []
+        for c, off in zip(batch.calls, call_off):
+            c0, c1 = int(off[i]), int(off[i + 1])
+            base = BASES[c.base]
+            # bases skipped since the previous call, in the read's orientation
+            is_b = seq == (COMPLEMENT[base] if rev else base)
+            rank = np.cumsum(is_b) - 1
+            r = rank[c.q[c0:c1] - a]
+            if rev:
+                r = (int(is_b.sum()) - 1 - r)[::-1]
+            d = np.diff(r, prepend=-1) - 1
+            deltas = "".join("," + str(x) for x in d.tolist())
+            q = c.ml[:, c0:c1]
+            if rev:  # MM/ML list calls in the read's own orientation
+                q = q[:, ::-1]
+            for code, values in zip(c.codes, q):
+                mm.append(f"{c.base}+{code}?{deltas};")
+                ml.append(values)
         records.append(bamio.encode_record(
             name=f"read{batch.r0 + i}", pos=int(batch.starts[i]),
             end=int(batch.starts[i] + batch.spans[i]), flag=16 if rev else 0,
             mapq=mapq, cigar=cig_all[run_off[i]:run_off[i + 1]],
-            seq_codes=seq, qual=batch.qual[a:b], mm=f"C+h?{deltas};C+m?{deltas};",
-            ml=ml,
+            seq_codes=seq, qual=batch.qual[a:b], mm="".join(mm),
+            ml=np.concatenate(ml),
         ))
     return records
 
@@ -359,23 +488,21 @@ _WORKER: dict = {}
 
 
 def _worker_init(config: dict, seed: int) -> None:
-    _WORKER.update(config=config, seed=seed,
-                   layout=make_layout(config["data"], seed))
+    _WORKER.update(config=config, seed=seed, layout=make_layout(config, seed))
 
 
 def _encode_worker(b: int):
     """One batch as BGZF blocks (records start in the batch's own blocks),
-    with what the index and the threshold need."""
+    with what the index and the thresholds need."""
     cfg, seed, layout = _WORKER["config"], _WORKER["seed"], _WORKER["layout"]
-    data, model = cfg["data"], cfg["model"]
-    batch = batch_of(layout, data, model, seed, b)
-    records = encode_batch(batch, int(data["mapq"]))
+    batch = batch_of(layout, cfg, seed, b)
+    records = encode_batch(batch, int(cfg["data"]["mapq"]))
     lens = np.array([len(r) for r in records], dtype=np.int64)
     uoff = np.concatenate([[0], np.cumsum(lens)])
     blob, coff = bamio.bgzf_compress(b"".join(records))
     return dict(blob=blob, coff=coff, uoff=uoff, beg=batch.starts,
                 end=batch.starts + batch.spans, hist=confidence_hist(batch),
-                calls=len(batch.call_q))
+                calls={c.base: len(c.q) for c in batch.calls})
 
 
 def batch_count(config: dict) -> int:
@@ -385,14 +512,17 @@ def batch_count(config: dict) -> int:
 
 def generate(config: dict, seed: int, out_dir: str, workers: int = 1) -> dict:
     """Write the run's modBAM, its index, the FASTA and ``meta.json``;
-    batches encode on ``workers`` processes."""
+    batches encode on ``workers`` processes. ``meta.json`` holds, for each
+    called base, its calls and its threshold (``threshold_from_hist`` at
+    the configuration's ``filter_percentile``); ``threshold`` is C's."""
     import multiprocessing as mp
 
     data = config["data"]
     name = data["contig_name"]
-    layout = make_layout(data, seed)
-    hist = np.zeros(513, dtype=np.int64)
-    n_calls = 0
+    layout = make_layout(config, seed)
+    bases = [g["base"] for g in call_groups(config)]
+    hist = {b: np.zeros(513, dtype=np.int64) for b in bases}
+    calls = dict.fromkeys(bases, 0)
     vb, ve, begs, ends = [], [], [], []
     path = os.path.join(out_dir, "reads.bam")
     with open(path, "wb") as fh, mp.get_context("spawn").Pool(
@@ -406,21 +536,25 @@ def generate(config: dict, seed: int, out_dir: str, workers: int = 1) -> dict:
             ve.append(v[1:])
             begs.append(part["beg"])
             ends.append(part["end"])
-            hist += part["hist"]
-            n_calls += part["calls"]
+            for b in bases:
+                hist[b] += part["hist"][b]
+                calls[b] += part["calls"][b]
             fh.write(part["blob"])
             base += len(part["blob"])
         fh.write(bamio.EOF_BLOCK)
     bamio.write_bai(path + ".bai", np.concatenate(begs), np.concatenate(ends),
                     np.concatenate(vb), np.concatenate(ve))
     bamio.write_fasta(os.path.join(out_dir, "ref.fa"), name, ASCII[layout.contig])
+    pct = float(config["filter_percentile"])
+    thresholds = {b: threshold_from_hist(hist[b], pct) for b in bases}
     meta = {
         "reads": int(len(layout.starts)),
         "read_bases": int(layout.spans.sum()),
-        "calls": n_calls,
-        "threshold": threshold_from_hist(hist, float(config["filter_percentile"])),
-        "contig": name,
+        "calls": sum(calls.values()),
     }
+    if "C" in thresholds:
+        meta["threshold"] = thresholds["C"]
+    meta.update(contig=name, thresholds=thresholds, calls_per_base=calls)
     with open(os.path.join(out_dir, "meta.json"), "w") as fh:
         json.dump(meta, fh)
     return meta

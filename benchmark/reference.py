@@ -1,35 +1,44 @@
 """The plain reference: the bedMethyl of a cell worked out again from the
 generator's truth, in NumPy.
 
-It regenerates the reads of the run from the seed (``gen.iter_batches``),
-calls every aligned modification call against the cell's threshold,
+It regenerates the reads of the run from the seed (``gen.batch_of``),
+calls every aligned modification call against its base's threshold,
 counts per reference position and strand, and renders the rows as modkit's
 bedMethyl (18 columns, tab-separated). It imports nothing of the program
 under test.
 
-What it implements, from modkit's documentation of ``pileup``:
+What it implements, from modkit's documentation of ``pileup``, for a call
+set of one or more groups, each on its own primary base (``gen.py``):
 
-- a call: each class whose probability reaches the threshold is a
-  candidate, the canonical class (1 - the sum of the mod probabilities)
-  too; the highest candidate wins, on a tie the canonical class, then the
-  later mod class; no candidate is a failed call (``N_fail``);
+- a call: each class whose probability reaches the threshold of the
+  call's primary base is a candidate, the canonical class (1 - the sum of
+  the mod probabilities) too; the highest candidate wins, on a tie the
+  canonical class, then the later mod class; no candidate is a failed call;
 - ``--ignore h`` (``--preset traditional``): 5hmC's probability is spread
-  evenly over the remaining classes (5mC and canonical);
-- per position and strand: ``N_mod``, ``N_canonical``, ``N_other_mod``
-  from the calls at a read C; ``N_fail``; ``N_delete`` from deletions;
-  ``N_nocall`` from reads with a C there and no call; ``N_diff`` from reads
-  with another base and no call; a row per mod code for every position and
-  strand with ``N_valid_cov`` > 0 where a read that carries the code covers;
-- ``--cpg --combine-strands``: rows only at reference CpGs, the + strand at
-  the C and the - strand at the G summed into one row with strand ``.``.
+  evenly over the remaining classes of its base (5mC and canonical);
+- per position, strand and primary base ``b``, in the reads' own
+  orientation: ``N_mod``, ``N_canonical``, ``N_other_mod`` from the calls at
+  a read ``b``; ``N_nocall``, reads with a ``b`` there and no call;
+  ``N_diff``, reads with another base there and no failed call (modkit
+  tallies ``N_fail`` once a position and strand, over every base, and
+  ``N_diff`` takes the reads of other bases that are not in it, so the
+  five counts partition the reads); per position and strand ``N_fail``
+  and ``N_delete``; a row per mod code of ``b`` for every position and
+  strand where ``b`` has ``N_valid_cov`` > 0 and a read that carries calls
+  covers, ordered by position, strand and code (modkit sorts codes by
+  character);
+- ``--cpg --combine-strands`` (a call set on C alone): rows only at
+  reference CpGs, the + strand at the C and the - strand at the G summed
+  into one row with strand ``.``.
 
-Without ``--filter-threshold`` the threshold is modkit's default estimate
-(``estimate.py``): the reads that its sampling schedule takes, and the
-percentile of their calls' confidences. The rows then take two passes over
-the truth: the reads' confidences first, then the counts at that
-threshold.
+Thresholds are handed in as ``--filter-threshold BASE:value``, one for each
+called base. Without them each base's threshold is modkit's default
+estimate (``estimate.py``): the reads that its sampling schedule takes,
+and the percentile of their calls' confidences on that base. The rows then
+take two passes over the truth: the reads' confidences first, then the
+counts at those thresholds.
 
-``precision="bf16"`` (or ``"fp8"``) computes the call in bfloat16 (fp8
+``precision="bf16"`` (or ``"fp8"``) computes every call in bfloat16 (fp8
 e4m3) instead of float32: the controls that a sound comparison has to
 reject.
 """
@@ -41,8 +50,6 @@ import numpy as np
 from benchmark import estimate, gen
 
 FILTERED, CANONICAL = 0, 1
-# mod-code order of the rows (modkit sorts codes by character)
-ROW_CODES = ("h", "m")
 
 
 class Flags:
@@ -58,7 +65,7 @@ class Flags:
                 "--sampling-interval-size": ("sampling_interval", int)}
 
     def __init__(self, flags: list):
-        self.threshold = None
+        self.thresholds = {}  # primary base -> the threshold handed in
         self.num_reads, self.filter_percentile = 10042, 0.1
         self.sampling_interval = 1_000_000
         self.cpg = self.combine = False
@@ -74,10 +81,10 @@ class Flags:
                 setattr(self, name, kind(flags[i + 1]))
                 i += 2
             elif f == "--filter-threshold":
-                base, _, v = flags[i + 1].partition(":")
-                if base != "C":
-                    raise ValueError(f"reference: threshold for {base!r}")
-                self.threshold = float(v)
+                base, sep, v = flags[i + 1].partition(":")
+                if not sep or base not in gen.BASES or base in self.thresholds:
+                    raise ValueError(f"reference: threshold {flags[i + 1]!r}")
+                self.thresholds[base] = float(v)
                 i += 2
             elif f == "--cpg":
                 self.cpg = True
@@ -100,10 +107,13 @@ class Flags:
             raise ValueError("reference: --combine-strands needs --cpg")
         if self.ignore not in (None, "h"):
             raise ValueError(f"reference: --ignore {self.ignore!r}")
-        if self.threshold is None and (self.cpg or self.ignore):
+        if not self.thresholds and (self.cpg or self.ignore):
             raise ValueError("reference: the estimate is implemented without "
                              "--cpg and --ignore only")
-        self.codes = ["m"] if self.ignore == "h" else ["h", "m"]
+
+    def codes(self, codes: list) -> list:
+        """Of a group's ``codes``, those its rows carry."""
+        return [c for c in codes if c != self.ignore]
 
 
 def to_bf16(x: np.ndarray) -> np.ndarray:
@@ -152,28 +162,37 @@ def call_states(cols: list, t: float, precision: str = "f32") -> np.ndarray:
     return np.where(can, CANONICAL, np.where(any_mod, 2 + best_j, FILTERED))
 
 
-def class_probs(qh: np.ndarray, qm: np.ndarray, flags: Flags) -> list:
-    """Each call's class probabilities in the read's class order, float32:
-    an ML value q stands for (q + 0.5) / 256."""
-    ph = (qh.astype(np.float32) + np.float32(0.5)) / np.float32(256)
-    pm = (qm.astype(np.float32) + np.float32(0.5)) / np.float32(256)
-    if flags.ignore == "h":
-        # 5hmC's mass spread over 5mC and canonical
-        return [pm + ph / np.float32(2)]
-    return [ph, pm]
+def class_probs(ml: np.ndarray, codes: list, flags: Flags) -> list:
+    """Each call's class probabilities in the group's code order, float32,
+    from its ML values ``ml`` [codes, calls]: an ML value q stands for
+    (q + 0.5) / 256."""
+    p = [(q.astype(np.float32) + np.float32(0.5)) / np.float32(256) for q in ml]
+    if flags.ignore in codes:
+        # the ignored code's mass spread evenly over the remaining classes
+        i = codes.index(flags.ignore)
+        share = p[i] / np.float32(len(codes))
+        return [pj + share for j, pj in enumerate(p) if j != i]
+    return p
 
 
 class Counts:
-    """Per (position, strand) counts over the whole contig; a flat key is
-    position * 2 + strand (0 forward, 1 reverse)."""
+    """Per (position, strand) counts over the whole contig, per called base
+    where they are kept apart; a flat key is position * 2 + strand (0
+    forward, 1 reverse)."""
 
-    def __init__(self, contig: np.ndarray, n_codes: int):
+    def __init__(self, contig: np.ndarray, groups: list):
+        """``groups``: (primary base, the codes its rows carry) of each
+        group."""
         self.contig = contig
         self.length = n = len(contig)
-        self.states = np.zeros((n * 2, 2 + n_codes), dtype=np.int32)
+        self.bases = [b for b, _ in groups]
+        self.codes = [list(c) for _, c in groups]
+        self.states = [np.zeros((n * 2, 2 + len(c)), dtype=np.int32) for _, c in groups]
         self.delete = np.zeros(n * 2, dtype=np.int32)
         self.subs = np.zeros(n * 2, dtype=np.int32)
-        self.subs_to_c = np.zeros(n * 2, dtype=np.int32)
+        # substitutions whose read base is the group's base, in the read's
+        # orientation
+        self.subs_to = [np.zeros(n * 2, dtype=np.int32) for _ in groups]
         # coverage edges per strand: every read, and reads that carry calls
         self.cover = np.zeros((2, n + 1), dtype=np.int32)
         self.cover_reg = np.zeros((2, n + 1), dtype=np.int32)
@@ -181,8 +200,11 @@ class Counts:
     def merge(self, part: dict) -> None:
         """Add one batch's counts (``batch_counts``)."""
         sl = slice(part["lo"] * 2, part["hi"] * 2)
-        for name in ("states", "delete", "subs", "subs_to_c"):
+        for name in ("delete", "subs"):
             getattr(self, name)[sl] += part[name]
+        for name in ("states", "subs_to"):
+            for mine, theirs in zip(getattr(self, name), part[name]):
+                mine[sl] += theirs
         for name in ("cover", "cover_reg"):
             s, pos, d = part[name]
             np.add.at(getattr(self, name), (s, pos), d)
@@ -193,25 +215,34 @@ class Counts:
         # reads with a match column there
         self.depth = flat(self.cover) - self.delete
         self.registered = flat(self.cover_reg)
-        # reads whose base there is a C in their own orientation
-        ref_c = np.stack([self.contig == gen.C, self.contig == gen.G], axis=1).reshape(-1)
-        self.read_c = ref_c * (self.depth - self.subs) + self.subs_to_c
+        # reads whose base there is the group's base in their own orientation
+        self.read_b = []
+        for base, to_b in zip(self.bases, self.subs_to):
+            b = gen.BASES[base]
+            ref_b = np.stack([self.contig == b, self.contig == gen.COMPLEMENT[b]],
+                             axis=1).reshape(-1)
+            self.read_b.append(ref_b * (self.depth - self.subs) + to_b)
+        # failed calls, over every base
+        self.failed = sum(st[:, FILTERED] for st in self.states)
 
-    def fields(self, keys: np.ndarray, j: int) -> dict:
-        """Row fields of code ``j`` at flat (position, strand) keys."""
-        st = self.states[keys].astype(np.int64)
+    def fields(self, keys: np.ndarray, g: int, j: int) -> dict:
+        """Row fields of code ``j`` of group ``g`` at flat (position,
+        strand) keys."""
+        st = self.states[g][keys].astype(np.int64)
         mods = st[:, 2:]
         valid = st[:, CANONICAL] + mods.sum(axis=1)
-        read_c = self.read_c[keys].astype(np.int64)
+        read_b = self.read_b[g][keys].astype(np.int64)
+        failed = self.failed[keys].astype(np.int64)
         return dict(
             valid=valid, n_mod=mods[:, j], n_can=st[:, CANONICAL],
             n_other=mods.sum(axis=1) - mods[:, j],
-            n_del=self.delete[keys].astype(np.int64), n_fail=st[:, FILTERED],
-            n_diff=self.depth[keys] - read_c, n_nocall=read_c - st.sum(axis=1),
+            n_del=self.delete[keys].astype(np.int64), n_fail=failed,
+            n_diff=self.depth[keys] - read_b - (failed - st[:, FILTERED]),
+            n_nocall=read_b - st.sum(axis=1),
         )
 
-    def present(self, keys: np.ndarray) -> np.ndarray:
-        st = self.states[keys]
+    def present(self, keys: np.ndarray, g: int) -> np.ndarray:
+        st = self.states[g][keys]
         valid = st[:, CANONICAL] + st[:, 2:].sum(axis=1)
         return (valid > 0) & (self.registered[keys] > 0)
 
@@ -232,26 +263,29 @@ def batch_counts(batch: gen.Batch, flags: Flags, precision: str) -> dict:
         r = batch.read_of_col(cols)
         return (batch.starts[r] + cols - batch.col_off[r]) * 2 + rev[r], r
 
-    # calls at aligned read bases
-    al = batch.call_pos >= 0
-    st = call_states(class_probs(batch.qh[al], batch.qm[al], flags),
-                     flags.threshold, precision)
-    k = 2 + len(flags.codes)
-    out = dict(lo=lo, hi=hi)
-    out["states"] = hist(batch.call_pos[al] * 2 + rev[batch.call_read[al]], k, st)
+    out = dict(lo=lo, hi=hi, states=[], subs_to=[])
     # deletions and substitutions at their reference positions
     out["delete"] = hist(ref_key(batch.del_col)[0])
     keys, r = ref_key(batch.sub_col)
     out["subs"] = hist(keys)
-    to_c = batch.sub_base == np.where(rev[r] == 1, gen.G, gen.C)
-    out["subs_to_c"] = hist(keys[to_c])
+    reg = np.zeros(len(rev), dtype=bool)
+    for c in batch.calls:
+        # calls at aligned read bases
+        al = c.pos >= 0
+        st = call_states(class_probs(c.ml[:, al], c.codes, flags),
+                         flags.thresholds[c.base], precision)
+        k = 2 + len(flags.codes(c.codes))
+        out["states"].append(hist(c.pos[al] * 2 + rev[c.read[al]], k, st))
+        b = gen.BASES[c.base]
+        to_b = batch.sub_base == np.where(rev[r] == 1, gen.COMPLEMENT[b], b)
+        out["subs_to"].append(hist(keys[to_b]))
+        reg |= np.bincount(c.read, minlength=len(rev)) > 0
     # every read covers its span; a read that carries calls registers its
     # codes over it: (strand, position, +1/-1) edges
     ends = batch.starts + batch.spans
     one = np.ones(len(rev), dtype=np.int32)
     out["cover"] = (np.concatenate([rev, rev]), np.concatenate([batch.starts, ends]),
                     np.concatenate([one, -one]))
-    reg = np.bincount(batch.call_read, minlength=len(rev)) > 0
     rr, sr, er = rev[reg], batch.starts[reg], ends[reg]
     out["cover_reg"] = (np.concatenate([rr, rr]), np.concatenate([sr, er]),
                         np.concatenate([one[reg], -one[reg]]))
@@ -264,32 +298,36 @@ FIELDS = ("valid", "n_mod", "n_can", "n_other", "n_del", "n_fail", "n_diff", "n_
 
 def rows(counts: Counts, flags: Flags, contig: np.ndarray) -> dict:
     """Row columns in output order: pos, strand (0 +, 1 -, 2 .), code
-    index into ``flags.codes`` and the count fields."""
-    codes = [c for c in ROW_CODES if c in flags.codes]
-    code_j = [flags.codes.index(c) for c in codes]
+    index into ``codes`` (modkit's order, by character) and the count
+    fields."""
+    order = sorted((code, g, j) for g, codes in enumerate(counts.codes)
+                   for j, code in enumerate(codes))
+    codes = [code for code, _, _ in order]
     if not flags.cpg:
         keys = np.arange(counts.length * 2)
-        keys = keys[counts.present(keys)]
-        out = {f: [] for f in FIELDS}
-        for j in code_j:
-            for f, v in counts.fields(keys, j).items():
-                out[f].append(v)
-        nc = len(codes)
-        res = {f: np.stack(v, axis=1).reshape(-1) for f, v in out.items()}
-        res["pos"] = np.repeat(keys // 2, nc)
-        res["strand"] = np.repeat(keys % 2, nc)
-        res["code"] = np.tile(np.arange(nc), len(keys))
+        present = [counts.present(keys, g) for g in range(len(counts.codes))]
+        # (key, code) pairs in key order, then code order
+        at = np.flatnonzero(np.stack([present[g] for _, g, _ in order], axis=1))
+        key, code = at // len(order), at % len(order)
+        res = {f: np.zeros(len(at), dtype=np.int64) for f in FIELDS}
+        for ci, (_, g, j) in enumerate(order):
+            idx = np.flatnonzero(code == ci)
+            for f, v in counts.fields(key[idx], g, j).items():
+                res[f][idx] = v
+        res["pos"] = key // 2
+        res["strand"] = key % 2
+        res["code"] = code
         res["codes"] = codes
         return res
     if not flags.combine:
         raise ValueError("reference: --cpg without --combine-strands")
     cpg = np.flatnonzero((contig[:-1] == gen.C) & (contig[1:] == gen.G))
     kp, kn = cpg * 2, (cpg + 1) * 2 + 1
-    pp, pn = counts.present(kp), counts.present(kn)
+    pp, pn = counts.present(kp, 0), counts.present(kn, 0)
     res = {f: [] for f in FIELDS}
     pos, code = [], []
-    for ci, j in enumerate(code_j):
-        fp, fn = counts.fields(kp, j), counts.fields(kn, j)
+    for ci, (_, g, j) in enumerate(order):
+        fp, fn = counts.fields(kp, g, j), counts.fields(kn, g, j)
         any_ = pp | pn
         for f in FIELDS:
             res[f].append((np.where(pp, fp[f], 0) + np.where(pn, fn[f], 0))[any_])
@@ -387,24 +425,22 @@ _WORKER: dict = {}
 
 def _worker_init(config, seed, flags, precision) -> None:
     _WORKER.update(config=config, seed=seed, flags=Flags(flags),
-                   precision=precision,
-                   layout=gen.make_layout(config["data"], seed))
+                   precision=precision, layout=gen.make_layout(config, seed))
 
 
 def _batch(b: int) -> gen.Batch:
     w = _WORKER
-    return gen.batch_of(w["layout"], w["config"]["data"], w["config"]["model"],
-                        w["seed"], b)
+    return gen.batch_of(w["layout"], w["config"], w["seed"], b)
 
 
-def _confidence_worker(b: int) -> np.ndarray:
+def _confidence_worker(b: int) -> dict:
     return estimate.read_confidence_hists(_batch(b))
 
 
 def _count_worker(args) -> dict:
-    b, threshold = args
+    b, thresholds = args
     w = _WORKER
-    w["flags"].threshold = threshold
+    w["flags"].thresholds = thresholds
     return batch_counts(_batch(b), w["flags"], w["precision"])
 
 
@@ -416,47 +452,58 @@ def _render_worker(args) -> bytes:
 def reference_bedmethyl(config: dict, seed: int, flags: list,
                         precision: str = "f32", workers: int = 1,
                         block: int = 1 << 19,
-                        sampled: dict | None = None) -> tuple[bytes, int, float]:
-    """(bedMethyl bytes, rows, threshold) of a cell's pileup, worked out
-    from the truth of ``seed`` on ``workers`` processes. Checks that a
-    threshold handed to the program is the one the truth gives; without
-    one, estimates it as modkit does, and puts what ``estimate.estimate``
-    found (the sampled reads, their pooled confidences, the threshold)
-    into ``sampled`` where that is given."""
+                        sampled: dict | None = None) -> tuple[bytes, int, dict]:
+    """(bedMethyl bytes, rows, the threshold of each called base) of a
+    cell's pileup, worked out from the truth of ``seed`` on ``workers``
+    processes. Checks that the thresholds handed to the program are the
+    ones the truth gives (``gen.generate``'s); without them, estimates
+    them as modkit does, and puts what ``estimate.estimate`` found (the
+    sampled reads, their pooled confidences, the thresholds) into
+    ``sampled`` where that is given."""
     import multiprocessing as mp
 
     fl = Flags(flags)
     data = config["data"]
-    layout = gen.make_layout(data, seed)
-    counts = Counts(layout.contig, len(fl.codes))
-    hist = np.zeros(513, dtype=np.int64)
+    groups = gen.call_groups(config)
+    bases = [g["base"] for g in groups]
+    if fl.thresholds and set(fl.thresholds) != set(bases):
+        raise ValueError(f"reference: thresholds for {sorted(fl.thresholds)} "
+                         f"where the calls are on {sorted(bases)}")
+    if fl.cpg and bases != ["C"]:
+        raise ValueError("reference: --cpg is implemented for calls on C alone")
+    layout = gen.make_layout(config, seed)
+    counts = Counts(layout.contig, [(g["base"], fl.codes(g["codes"])) for g in groups])
+    hist = {b: np.zeros(513, dtype=np.int64) for b in bases}
     batches = range(gen.batch_count(config))
     with mp.get_context("spawn").Pool(
             workers, initializer=_worker_init,
             initargs=(config, seed, flags, precision)) as pool:
-        t = fl.threshold
-        if t is None:
+        t = fl.thresholds
+        if not t:
+            hists = list(pool.imap(_confidence_worker, batches))
             est = estimate.estimate(
                 layout.starts, layout.spans,
-                np.concatenate(list(pool.imap(_confidence_worker, batches))),
+                {b: np.concatenate([h[b] for h in hists]) for b in bases},
                 len(layout.contig), fl.num_reads, fl.filter_percentile,
                 fl.sampling_interval)
-            t = est["threshold"]
+            t = est["thresholds"]
             if sampled is not None:
                 sampled.update(est)
         for part in pool.imap_unordered(_count_worker, [(b, t) for b in batches]):
-            hist += part["hist"]
+            for b in bases:
+                hist[b] += part["hist"][b]
             counts.merge(part)
         counts.finish()
-        if fl.threshold is not None:
-            t = gen.threshold_from_hist(hist, float(config["filter_percentile"]))
-            if t != fl.threshold:
+        if fl.thresholds:
+            pct = float(config["filter_percentile"])
+            truth = {b: gen.threshold_from_hist(hist[b], pct) for b in bases}
+            if truth != fl.thresholds:
                 raise ValueError(
-                    f"reference: threshold {fl.threshold} is not the truth's {t}")
+                    f"reference: thresholds {fl.thresholds} are not the truth's {truth}")
         res = rows(counts, fl, layout.contig)
         n = len(res["pos"])
         blocks = [({k: (v[a:a + block] if isinstance(v, np.ndarray) else v)
                     for k, v in res.items()}, data["contig_name"])
                   for a in range(0, n, block)]
         text = b"".join(pool.imap(_render_worker, blocks))
-    return text, n, t
+    return text, n, dict(t)

@@ -7,9 +7,9 @@ child process (``gen.py``) while this one imports torch, starts CUDA and
 loads the program's kernels; runs one warm-up job; then runs pileup jobs
 back to back for ``--seconds`` (one client, closed loop); judges every
 job's output against the plain reference (``reference.py``), and where the
-cell hands no ``--filter-threshold`` in, every job's estimated threshold
-against the reference's estimate (``estimate.py``); and prints
-one JSON line last on stdout. A job is the user's ``modkit pileup`` over
+cell hands no ``--filter-threshold`` in, every job's estimated threshold of
+each called base against the reference's estimate (``estimate.py``); and
+prints one JSON line last on stdout. A job is the user's ``modkit pileup`` over
 the whole contig: ``run_pileup`` with the ``PileupConfig`` that the
 program's CLI builds from the cell's flags, on ``cuda``.
 
@@ -27,7 +27,11 @@ which only the first run in a checkout makes (later runs find them built
 in the checkout). ``build_s`` is a key of its own in the result line.
 
 Cells, configurations and metrics are data: ``workloads/<cell>.json``,
-``configs/<config>.json`` and the entries of ``BENCHMARK.json``.
+``configs/<config>.json`` and the entries of ``BENCHMARK.json``. A
+configuration's call set (``gen.call_groups``) may hold calls on A beside
+C; a workload's flags name ``{threshold}`` (C's), ``{threshold_A}``,
+``{threshold_C}`` and ``{ref}``, which ``workload_flags`` fills in from the
+generator's ``meta.json``.
 """
 
 from __future__ import annotations
@@ -59,8 +63,8 @@ if ROOT not in sys.path:
 # modules that may not be loaded in a run, compared by top-level name
 FORBIDDEN = ("jax", "jaxlib", "flax", "modkit_tpu")
 RSS_PERIOD_S = 0.05
-# the index of C among the program's per-base pools of confidences (A, C, G, T)
-BASE_C = 1
+# the program's per-base pools of confidences are keyed by the base's index
+BASE_INDEX = {"A": 0, "C": 1, "G": 2, "T": 3}
 DRAIN_TIMEOUT_S = 120.0
 
 
@@ -81,6 +85,16 @@ def cell(workload: str, data_override: dict | None = None) -> tuple[dict, dict]:
     if data_override:
         config = {**config, "data": {**config["data"], **data_override}}
     return wl, config
+
+
+def workload_flags(wl: dict, thresholds: dict, ref: str) -> list:
+    """The workload's flags with the thresholds of each called base
+    (``{threshold_A}``, ``{threshold_C}``; ``{threshold}`` is C's) and the
+    FASTA's path (``{ref}``) filled in."""
+    named = {f"threshold_{b}": repr(t) for b, t in thresholds.items()}
+    if "C" in thresholds:
+        named["threshold"] = named["threshold_C"]
+    return [f.format(ref=ref, **named) for f in wl["flags"]]
 
 
 def digest(data: bytes) -> tuple[int, int]:
@@ -247,16 +261,16 @@ def cpu_time() -> float:
 
 def run_job(cfg, drain: Drain, keep: str | None) -> tuple:
     """One pileup job: (seconds, digest, error, CPU seconds, the threshold
-    of C that the job called with)."""
+    of each base that the job called with)."""
     from modkit_tpu_torch.pileup import runner
 
     drain.jobs.put(keep)
     c = cpu_time()
     t = time.perf_counter()
-    err = threshold = None
+    err = thresholds = None
     try:
         out = runner.run_pileup(dataclasses.replace(cfg))
-        threshold = out["thresholds"]["per_base"].get("C")
+        thresholds = dict(out["thresholds"]["per_base"])
     except Exception as e:  # a failed job is counted, and the run goes on to judge
         err = f"{type(e).__name__}: {e}"
         gc.collect()
@@ -265,7 +279,7 @@ def run_job(cfg, drain: Drain, keep: str | None) -> tuple:
         res = drain.results.get(timeout=DRAIN_TIMEOUT_S)
     except queue.Empty:
         res, err = None, err or "the job's output never closed"
-    return time.perf_counter() - t, res, err, cpu_time() - c, threshold
+    return time.perf_counter() - t, res, err, cpu_time() - c, thresholds
 
 
 def device_info(device: str) -> dict:
@@ -325,9 +339,12 @@ def rows_differing(got: bytes, ref: bytes) -> int:
 
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
-             device: str = "cuda", data_override: dict | None = None) -> dict:
-    """One run of a cell; returns the result line's object."""
-    wl, config = cell(workload, data_override)
+             device: str = "cuda", data_override: dict | None = None,
+             cell_spec: tuple | None = None) -> dict:
+    """One run of a cell; returns the result line's object. ``cell_spec``,
+    a (workload, configuration) pair, stands in for the files that
+    ``workload`` names."""
+    wl, config = cell_spec or cell(workload, data_override)
     work = tempfile.mkdtemp(prefix="modkit-bench-")
     gen_proc = None
     try:
@@ -367,11 +384,14 @@ def _run(workload, wl, config, seed, seconds, trace, device, work, gen_proc):
         kernels.kernel_lib("state")
     build_s = time.perf_counter() - tb
 
+    tw = time.perf_counter()
     if gen_proc.wait() != 0:
         raise RuntimeError(f"the generator failed with {gen_proc.returncode}")
+    log(f"set-up: the program loaded {tw - T0:.3f} s into the run, the data "
+        f"{time.perf_counter() - tw:.3f} s later")
     meta = load_json(os.path.join(work, "meta.json"))
     bam, ref = os.path.join(work, "reads.bam"), os.path.join(work, "ref.fa")
-    flags = [f.format(threshold=repr(meta["threshold"]), ref=ref) for f in wl["flags"]]
+    flags = workload_flags(wl, meta["thresholds"], ref)
     fifo = os.path.join(work, "out.bed")
     os.mkfifo(fifo)
     cfg = pileup_config([bam, fifo, *flags, "--device", device])
@@ -379,9 +399,9 @@ def _run(workload, wl, config, seed, seconds, trace, device, work, gen_proc):
     drain.start()
     rss = RssSampler()
     rss.start()
-    jobs = []  # (seconds, digest, error, CPU seconds, threshold, traced)
+    jobs = []  # (seconds, digest, error, CPU seconds, thresholds, traced)
     peaks = []  # the highest VmRSS sampled by each job's end
-    # where the program estimates the threshold, what its estimate pools in
+    # where the program estimates the thresholds, what its estimate pools in
     # the warm-up and the first timed job is caught, to be judged after the
     # window
     probe = PoolProbe() if "--filter-threshold" not in flags else None
@@ -455,7 +475,8 @@ def _run(workload, wl, config, seed, seconds, trace, device, work, gen_proc):
     log(f"job seconds: {[round(j[0], 3) for j in jobs]} (the first warms up)")
     log(f"job CPU seconds: {[round(j[3], 3) for j in jobs]}; over the window "
         f"{c_end - c_start:.3f} s, {1e6 * (c_end - c_start) / (n_reads * len(timed)):.3f} us a read")
-    log(f"jobs {len(timed)} in {t_end - t_start:.3f} s, {n_reads} reads a job; "
+    log(f"jobs {len(timed)} in {t_end - t_start:.3f} s, {n_reads} reads a job, "
+        f"calls a job by base {meta['calls_per_base']}; "
         f"set-up {setup_s:.3f} s, build {build_s:.3f} s apart; launch counters {counters}")
     log(f"harness threads' CPU over the run: drain {drain.cpu_s:.3f} s, "
         f"RSS sampler {rss.cpu_s:.3f} s ({rss.reads} reads); peak VmRSS sampled "
@@ -470,7 +491,7 @@ def _run(workload, wl, config, seed, seconds, trace, device, work, gen_proc):
 
     tr0 = time.perf_counter()
     sampled = {}
-    ref_bytes, ref_rows, ref_threshold = reference.reference_bedmethyl(
+    ref_bytes, ref_rows, ref_thresholds = reference.reference_bedmethyl(
         config, seed, flags, workers=os.cpu_count() or 1, sampled=sampled)
     ref_digest = digest(ref_bytes)
     failed = sum(1 for j in timed if j[2] is not None)
@@ -485,23 +506,28 @@ def _run(workload, wl, config, seed, seconds, trace, device, work, gen_proc):
         differing = rows_differing(got, ref_bytes)
     log(f"reference: {ref_rows} rows in {time.perf_counter() - tr0:.3f} s")
     if sampled:
-        # the program estimated the threshold: each job's, against the
-        # reference's in float32
+        # the program estimated the thresholds: each job's, base for base,
+        # against the reference's in float32
         import numpy as np
 
-        threshold_differing = sum(
-            1 for j in jobs
-            if j[4] is None or np.float32(j[4]) != np.float32(ref_threshold))
+        def same(got: dict | None) -> bool:
+            return got is not None and set(got) == set(ref_thresholds) and all(
+                np.float32(got[b]) == np.float32(t) for b, t in ref_thresholds.items())
+
+        threshold_differing = sum(1 for j in jobs if not same(j[4]))
         # and what the warm-up and the first timed job pooled, against the
-        # reference's sampled reads' confidences, bin for bin
+        # reference's sampled reads' confidences, bin for bin and base for
+        # base; a base outside the call set, or no pool, differs
+        want = {BASE_INDEX[b]: h for b, h in sampled["pooled"].items()}
         pool_differing = sum(
             1 for p in pools
-            if p is None or set(p) != {BASE_C} or p[BASE_C][1] != 0
-            or not np.array_equal(p[BASE_C][0], sampled["pooled"]))
+            if p is None or set(p) != set(want)
+            or any(p[i][1] != 0 or not np.array_equal(p[i][0], h) for i, h in want.items()))
         log(f"reference estimate: {len(sampled['reads'])} reads sampled (quota "
             f"{sampled['quota']}, {sampled['regions']} regions), "
-            f"{sampled['confidences']} confidences pooled, threshold "
-            f"{ref_threshold!r}; the jobs' thresholds {sorted({j[4] for j in jobs}, key=str)}; "
+            f"{sampled['confidences']} confidences pooled, thresholds "
+            f"{ref_thresholds!r}; the jobs' thresholds "
+            f"{sorted({tuple(sorted((j[4] or {}).items())) for j in jobs})}; "
             f"the probed jobs' pools (confidences, off the grid) "
             f"{[None if p is None else {b: (int(h.sum()), o) for b, (h, o) in p.items()} for p in pools]}")
     for j in jobs:

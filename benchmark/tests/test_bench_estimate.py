@@ -1,17 +1,17 @@
 """The reference's default estimate (``estimate.py``) equals the program's:
 the reads its sampling schedule takes, in the order it takes them, the
-multiset of their pooled confidences, and the threshold, on the CPU at a
-small size. Controls that sample other reads, or that take the percentile
-by nearest rank, differ from it."""
+multiset of their pooled confidences, and the threshold, of each called
+base, on the CPU at a small size, for the estimate cell and for a call set
+on two bases. Controls that sample other reads, or that take the
+percentile by nearest rank, differ from it."""
 
 import numpy as np
 import pytest
 
 from benchmark import estimate, gen, reference, run
-from conftest import CELLS, SMALL
+from conftest import CELLS, spec
 
 SEED = 2**33 + 17
-C = 1  # the threshold base's index in the program's per-base results
 # the estimate cell's own flags, whose quota at this size is every read (the
 # defaults parsed, and one pass over the whole file); then merged regions
 # under the floor of 50 draws with reads across intervals; then regions
@@ -24,17 +24,17 @@ CASES = {
 }
 
 
-@pytest.fixture(scope="module")
-def small_cell(tmp_path_factory):
-    """The estimate cell's modBAM at ``SMALL``, its truth's per-read
-    confidence histograms and its flags."""
-    wl, cfg = run.cell(CELLS[3], SMALL)
+@pytest.fixture(scope="module", params=[CELLS[3], "two-base.estimate"])
+def small_cell(request, tmp_path_factory):
+    """An estimate cell's modBAM at ``SMALL``, its truth's per-read
+    confidence histograms of each called base and its flags."""
+    wl, cfg = spec(request.param)
     out = tmp_path_factory.mktemp("estimate")
     gen.generate(cfg, SEED, str(out), workers=2)
-    layout = gen.make_layout(cfg["data"], SEED)
-    hists = np.concatenate([
-        estimate.read_confidence_hists(gen.batch_of(layout, cfg["data"], cfg["model"], SEED, b))
-        for b in range(gen.batch_count(cfg))])
+    layout = gen.make_layout(cfg, SEED)
+    parts = [estimate.read_confidence_hists(gen.batch_of(layout, cfg, SEED, b))
+             for b in range(gen.batch_count(cfg))]
+    hists = {base: np.concatenate([p[base] for p in parts]) for base in parts[0]}
     return str(out / "reads.bam"), layout, hists, wl["flags"]
 
 
@@ -64,23 +64,27 @@ def _grid_hist(conf: np.ndarray) -> np.ndarray:
 def test_estimate_equals_program(small_cell, case):
     from modkit_tpu_torch import thresholds
 
-    bam = small_cell[0]
+    bam, layout, hists = small_cell[:3]
     fl, est = _reference(small_cell, CASES[case])
     names = _program(bam, fl, confidences_only=False)
     assert list(names) == [f"read{i}" for i in est["reads"]]
     confs = _program(bam, fl, confidences_only=True)
-    assert set(confs) == {C}
-    assert np.array_equal(_grid_hist(confs[C]), est["pooled"])
-    got = thresholds.thresholds_from_confidences(confs, fl.filter_percentile)["C"]
-    assert np.float32(got) == np.float32(est["threshold"])
+    index = {run.BASE_INDEX[b]: b for b in hists}
+    assert set(confs) == set(index)
+    for i, b in index.items():
+        assert np.array_equal(_grid_hist(confs[i]), est["pooled"][b])
+    got = thresholds.thresholds_from_confidences(confs, fl.filter_percentile)
+    assert set(got) == set(est["thresholds"])
+    for b, t in est["thresholds"].items():
+        assert np.float32(got[b]) == np.float32(t)
     if case == "cell":
         # 10 042 reads asked of a file that holds fewer: every read with a call
-        eligible = np.flatnonzero(small_cell[2].sum(axis=1) > 0)
-        assert est["quota"] == len(small_cell[1].starts)
+        eligible = np.flatnonzero(sum(h.sum(axis=1) for h in hists.values()) > 0)
+        assert est["quota"] == len(layout.starts)
         assert sorted(est["reads"].tolist()) == eligible.tolist()
     if case == "taken_twice":
         # later regions' draws were partly spent on reads already taken
-        draws = sum(x for _, _, x in estimate.regions(len(small_cell[1].contig),
+        draws = sum(x for _, _, x in estimate.regions(len(layout.contig),
                                                        est["quota"], fl.sampling_interval))
         assert len(est["reads"]) < draws
 
@@ -88,23 +92,26 @@ def test_estimate_equals_program(small_cell, case):
 def test_controls_differ(small_cell):
     """The first reads of the file in place of the schedule's, and the
     nearest-rank percentile in place of the interpolated one, both differ
-    from the reference and from the program."""
+    from the reference and from the program, in each called base."""
     from modkit_tpu_torch import thresholds
 
     bam, layout, hists, _ = small_cell
     fl, est = _reference(small_cell, CASES["merged"])
-    first = np.flatnonzero(hists.sum(axis=1) > 0)[:est["quota"]]
+    eligible = sum(h.sum(axis=1) for h in hists.values()) > 0
+    first = np.flatnonzero(eligible)[:est["quota"]]
     assert set(first.tolist()) != set(est["reads"].tolist())
-    assert not np.array_equal(hists[first].sum(axis=0), est["pooled"])
-    # a percentile that falls between two distinct sorted confidences
-    pooled = est["pooled"]
-    bins = np.flatnonzero(pooled)
-    k = int(np.cumsum(pooled)[bins[len(bins) // 2]]) - 1  # the last index of a bin
-    q = float(np.float32((k + 0.5) / (int(pooled.sum()) - 1)))
-    interp = estimate.percentile(pooled, q)
-    assert gen.threshold_from_hist(pooled, q) != interp
     confs = _program(bam, fl, confidences_only=True)
-    assert np.float32(thresholds.thresholds_from_confidences(confs, q)["C"]) == np.float32(interp)
+    for b, h in hists.items():
+        assert not np.array_equal(h[first].sum(axis=0), est["pooled"][b])
+        # a percentile that falls between two distinct sorted confidences
+        pooled = est["pooled"][b]
+        bins = np.flatnonzero(pooled)
+        k = int(np.cumsum(pooled)[bins[len(bins) // 2]]) - 1  # the last index of a bin
+        q = float(np.float32((k + 0.5) / (int(pooled.sum()) - 1)))
+        interp = estimate.percentile(pooled, q)
+        assert gen.threshold_from_hist(pooled, q) != interp
+        got = thresholds.thresholds_from_confidences(confs, q)[b]
+        assert np.float32(got) == np.float32(interp)
 
 
 def test_percentile_rounds_as_float32():
@@ -124,8 +131,8 @@ def test_flags_outside_the_estimate_are_refused():
         with pytest.raises(ValueError):
             reference.Flags(["--interval-size", "100000", *extra])
     fl = reference.Flags(["-n", "60", "-p", "0.25", "--sampling-interval-size", "5000"])
-    assert (fl.threshold, fl.num_reads, fl.filter_percentile, fl.sampling_interval) == \
-        (None, 60, 0.25, 5000)
+    assert (fl.thresholds, fl.num_reads, fl.filter_percentile, fl.sampling_interval) == \
+        ({}, 60, 0.25, 5000)
 
 
 def test_grid_hist_counts_values_off_the_grid():

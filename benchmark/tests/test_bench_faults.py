@@ -1,6 +1,8 @@
 """A whole run on the CPU, with the harness's look for a card skipped: a
 sound run is correct and its result line has the contract's keys; with
-the timed path broken underneath, ``correct`` comes out false."""
+the timed path broken underneath, ``correct`` comes out false. The same
+for a call set on two bases (``conftest.TWO_BASE``), with thresholds
+handed in and with the estimate."""
 
 import json
 import os
@@ -12,7 +14,7 @@ import pytest
 import torch
 
 from benchmark import run
-from conftest import CELLS, ROOT, SMALL
+from conftest import CELLS, ROOT, SMALL, TWO_BASE, spec
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "build_s", "checks"]
 
@@ -28,10 +30,11 @@ def _names(kind, workload):
 
 
 def _run(workload, seed=2**32 + 5, trace=False):
-    return run.run_cell(workload, seed, 0.5, trace, device="cpu", data_override=SMALL)
+    return run.run_cell(workload, seed, 0.5, trace, device="cpu", data_override=SMALL,
+                        cell_spec=spec(workload) if workload in TWO_BASE else None)
 
 
-@pytest.mark.parametrize("workload", CELLS)
+@pytest.mark.parametrize("workload", CELLS + tuple(TWO_BASE))
 def test_sound_run(workload):
     res = _run(workload)
     assert list(res) == KEYS
@@ -77,6 +80,26 @@ def _alter_rows(monkeypatch):
     monkeypatch.setattr(engine, "decode_counts_columnar", altered)
 
 
+def _alter_a_row(monkeypatch):
+    """One count of the first row of 6mA (code ``a``) that the C++
+    formatting writes."""
+    from modkit_tpu_torch import native
+
+    real = native.format_rows
+
+    def altered(*a, **k):
+        text, n = real(*a, **k)
+        lines = text.split(b"\n")
+        for i, line in enumerate(lines):
+            f = line.split(b"\t")
+            if len(f) > 12 and f[3] == b"a":
+                f[12] = str(int(f[12]) + 1).encode()  # N_canonical
+                lines[i] = b"\t".join(f)
+                return b"\n".join(lines), n
+        return text, n
+    monkeypatch.setattr(native, "format_rows", altered)
+
+
 def _drop_half(monkeypatch):
     from modkit_tpu_torch.pileup.engine import TileProcessor
 
@@ -100,20 +123,23 @@ def _state_unchanged(monkeypatch):
         monkeypatch.setattr(engine, name, zeros)
 
 
-def _shift_threshold(monkeypatch):
-    """The estimate one step of the confidences' 1/512 grid higher."""
+def _shift_threshold(monkeypatch, only=None):
+    """The estimate one step of the confidences' 1/512 grid higher (of the
+    base ``only``, or of every base)."""
     from modkit_tpu_torch import thresholds
 
     real = thresholds.estimate_thresholds
 
     def shifted(*a, **k):
-        return {b: t + 1 / 512 for b, t in real(*a, **k).items()}
+        return {b: t + (1 / 512 if only in (None, b) else 0)
+                for b, t in real(*a, **k).items()}
     monkeypatch.setattr(thresholds, "estimate_thresholds", shifted)
 
 
-def _half_sampled(monkeypatch):
+def _half_sampled(monkeypatch, only=None):
     """Half of the estimate's sample left out: the percentile taken over the
-    first half of the pooled confidences."""
+    first half of the pooled confidences (of the base index ``only``, or of
+    every base)."""
     from modkit_tpu_torch import thresholds
 
     real = thresholds.sample_reads
@@ -121,18 +147,21 @@ def _half_sampled(monkeypatch):
     def half(*a, **k):
         out = real(*a, **k)
         if k.get("confidences_only"):
-            out = {b: v[:len(v) // 2] for b, v in out.items()}
+            out = {b: v[:len(v) // 2] if only in (None, b) else v for b, v in out.items()}
         return out
     monkeypatch.setattr(thresholds, "sample_reads", half)
 
 
 FAULTS = {
     "answer_altered": {CELLS[0]: _alter_text, CELLS[1]: _alter_rows, CELLS[2]: _alter_rows,
-                       CELLS[3]: _alter_text},
-    "half_left_out": {c: _drop_half for c in CELLS},
-    "state_unchanged": {c: _state_unchanged for c in CELLS},
-    "threshold_shifted": {CELLS[3]: _shift_threshold},
-    "half_sampled": {CELLS[3]: _half_sampled},
+                       CELLS[3]: _alter_text, "two-base.pileup": _alter_a_row,
+                       "two-base.estimate": _alter_a_row},
+    "half_left_out": {c: _drop_half for c in CELLS + ("two-base.pileup",)},
+    "state_unchanged": {c: _state_unchanged for c in CELLS + ("two-base.pileup",)},
+    "threshold_shifted": {CELLS[3]: _shift_threshold,
+                          "two-base.estimate": lambda m: _shift_threshold(m, "A")},
+    "half_sampled": {CELLS[3]: _half_sampled,
+                     "two-base.estimate": lambda m: _half_sampled(m, run.BASE_INDEX["A"])},
 }
 # the checks that each fault has to trip; the rest trip the output's two
 CAUGHT_BY = {
@@ -142,7 +171,8 @@ CAUGHT_BY = {
 
 
 @pytest.mark.parametrize("fault,workload",
-                         [(f, c) for f in sorted(FAULTS) for c in CELLS if c in FAULTS[f]])
+                         [(f, c) for f in sorted(FAULTS) for c in CELLS + tuple(TWO_BASE)
+                          if c in FAULTS[f]])
 def test_fault_is_caught(monkeypatch, workload, fault):
     FAULTS[fault][workload](monkeypatch)
     res = _run(workload)
